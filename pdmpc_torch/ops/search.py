@@ -1,0 +1,280 @@
+"""Batched trim-lattice trajectory search (optimal path) — the optimizer.
+
+Torch twin of pdmpc_tpu/ops/search.py's ``plan_trajectory`` for the road
+(non-convex) path: the frontier is expanded layer by layer over the
+horizon; every (beam node x successor trim) candidate is cost-evaluated and
+collision-masked at once, then the best ``beam_width`` candidates survive.
+Every function takes a leading vehicle dim V, so one call plans a whole
+planning chunk and each search layer launches each collision kernel once.
+
+The collision checks go only through ``ops.collision``'s wrappers: the
+CUDA kernels on the card, their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from pdmpc_torch.models.mpa import MpaTensors
+from pdmpc_torch.ops.collision import (
+    SegmentsPre,
+    boundary_hits,
+    outline_hits,
+    precompute_outline,
+    precompute_segments,
+)
+from pdmpc_torch.scenarios.scenario import VO
+
+
+class Obstacles(NamedTuple):
+    """Dynamic obstacles per planning vehicle.
+
+    ``polys``: [V, n_obs, Hp, VO, 2] — polygon of obstacle o at prediction
+    step k (an expanded view when all vehicles share one obstacle set);
+    ``mask``: [V, n_obs, Hp] — False entries are ignored.
+    """
+
+    polys: torch.Tensor
+    mask: torch.Tensor
+
+
+def pad_polys_to_vo(polys: torch.Tensor) -> torch.Tensor:
+    """Pad polygons [..., V, 2] to [..., VO, 2] by repeating the last vertex."""
+    v = polys.shape[-2]
+    if v == VO:
+        return polys
+    assert v < VO, f"polygon vertex count {v} exceeds VO={VO}"
+    last = polys[..., -1:, :].expand(*polys.shape[:-2], VO - v, 2)
+    return torch.cat([polys, last], dim=-2)
+
+
+def polys_to_edge_segments(polys, mask):
+    """Polygon outlines [..., NO, VO, 2] (mask [..., NO]) as their edge
+    segments [..., NO*VO, 2, 2] with segment mask [..., NO*VO]."""
+    *lead, no, vo, _ = polys.shape
+    segs = torch.stack([polys, torch.roll(polys, -1, dims=-2)], dim=-2)
+    return (segs.reshape(*lead, no * vo, 2, 2),
+            torch.repeat_interleave(mask, vo, dim=-1))
+
+
+def _vertex_major(man_polys):
+    """Candidates [C, VA, 2] -> cx, cy [1, VA, C] (the kernels' layout)."""
+    cand = man_polys.permute(1, 2, 0)
+    return cand[None, :, 0].contiguous(), cand[None, :, 1].contiguous()
+
+
+def candidate_boundary_violations(man_polys, boundary_segments,
+                                  boundary_mask):
+    """[C] True where a candidate polygon [C, VA, 2] crosses an active
+    boundary segment ([S, 2, 2], mask [S]) — the reference-layout entry
+    (intersect_lanelet_boundary.m), through the boundary kernel's wrapper."""
+    pre = precompute_segments(boundary_segments[None], boundary_mask[None])
+    return boundary_hits(*_vertex_major(man_polys), pre)[0]
+
+
+def candidate_outline_collisions(man_polys, obs_polys, obs_mask):
+    """[C] True where a candidate outline [C, VA, 2] crosses the outline of
+    an active obstacle ([n_obs, VO, 2], mask [n_obs]) — InterX semantics
+    (OptimizerInterface.m:36-46), through the outline kernel's wrapper."""
+    pre = precompute_outline(obs_polys[None], obs_mask[None])
+    return outline_hits(*_vertex_major(man_polys), pre)[0]
+
+
+class PlanResult(NamedTuple):
+    trims: torch.Tensor         # [V, Hp] i64 — predicted trims
+    poses: torch.Tensor         # [V, Hp, 3] f32 — predicted poses
+    shapes: torch.Tensor        # [V, Hp, VA, 2] f32 — swept areas (offset)
+    cost: torch.Tensor          # [V] f32 — accumulated g of the chosen leaf
+    is_exhausted: torch.Tensor  # [V] bool — no feasible leaf found
+    n_expanded: torch.Tensor    # [V] i64 — feasible candidates, all layers
+
+
+def _cost_to_go(pos, ref_points, v_ref, k_child: int, dt: float):
+    """Admissible cost-to-go (expand_node.m:63-73) of positions
+    ``pos`` [V, ..., 2] after step ``k_child``: sum over future steps i of
+    max(0, |pos - ref_i| - d_max_i)^2, d_max_i the distance travelable
+    until step i. ref_points [V, Hp, 2]; v_ref [V, Hp]."""
+    hp = ref_points.shape[1]
+    future = torch.arange(hp, device=pos.device) > k_child      # [Hp]
+    dv = torch.where(future, dt * v_ref, torch.zeros_like(v_ref))
+    d_max = torch.cumsum(dv, dim=-1)                             # [V, Hp]
+    lead = (slice(None),) + (None,) * (pos.dim() - 2)
+    diff = pos[..., None, :] - ref_points[lead]                  # [V,...,Hp,2]
+    dist = torch.sqrt(diff[..., 0] * diff[..., 0]
+                      + diff[..., 1] * diff[..., 1])
+    short = torch.clamp_min(dist - d_max[lead], 0.0)
+    sq = torch.where(future, short * short, torch.zeros_like(short))
+    return torch.sum(sq, dim=-1)
+
+
+def _candidate_polys(table, trim, pose, c, s):
+    """World-frame swept areas of every (beam node, successor) candidate,
+    in the kernels' vertex-major layout [V, VA, B*n].
+
+    table [n, n, VA, 2]; trim [V, B]; pose [V, B, 3]; c, s [V, B, 1]. The
+    transform is computed op by op, as the reference's XLA path does.
+    """
+    areas = table[trim]                                      # [V,B,n,VA,2]
+    c4, s4 = c[..., None], s[..., None]
+    ax = c4 * areas[..., 0] - s4 * areas[..., 1] + pose[..., 0, None, None]
+    ay = s4 * areas[..., 0] + c4 * areas[..., 1] + pose[..., 1, None, None]
+    v, _, _, va = ax.shape
+    return (ax.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous(),
+            ay.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous())
+
+
+def plan_trajectory(
+    mpa: MpaTensors,
+    x0: torch.Tensor,            # [V, 3] pose (x, y, yaw)
+    trim0: torch.Tensor,         # [V] i64
+    ref_points: torch.Tensor,    # [V, Hp, 2]
+    v_ref: torch.Tensor,         # [V, Hp]
+    obstacles: Obstacles,
+    dt: float,
+    beam_width: int,
+    boundary_segments: torch.Tensor | None = None,   # [V, S, 2, 2]
+    boundary_mask: torch.Tensor | None = None,       # [V, S]
+    segments_pre: SegmentsPre | None = None,         # precomputed bundle
+    non_convex: bool = True,
+) -> PlanResult:
+    """Plan V vehicles' Hp-step trajectories through the trim lattice.
+
+    Reference: pdmpc_tpu/ops/search.py plan_trajectory (:286-655). Road
+    scenarios check obstacle outlines by segment crossing
+    (``non_convex``, OptimizerInterface.m:36-46) and, when boundary
+    segments are given, every candidate's swept area without offset (the
+    larger-offset area at the last step) against the lanelet boundary
+    (GraphSearch.m:166-174).
+    """
+    if not non_convex:
+        raise NotImplementedError(
+            "the convex (SAT) obstacle path is not ported yet"
+        )
+    n = mpa.n_trims
+    hp = mpa.Hp
+    v = x0.shape[0]
+    dev = x0.device
+    rows = torch.arange(v, device=dev)
+
+    # candidate-independent obstacle geometry, once per planning pass for
+    # all Hp layers: [Hp, V, NO_pad, VO] so each layer's slice is contiguous
+    obs_pre = precompute_outline(obstacles.polys.permute(2, 0, 1, 3, 4),
+                                 obstacles.mask.permute(2, 0, 1))
+    if segments_pre is None and boundary_segments is not None:
+        segments_pre = precompute_segments(boundary_segments, boundary_mask)
+
+    # beam widths per layer: layer k holds at most (prev width) * n nodes,
+    # so early layers are exhaustive and skip the top-k
+    widths = []
+    w = 1
+    for _ in range(hp):
+        w = min(beam_width, w * n)
+        widths.append(w)
+
+    pose = x0[:, None, :]                                     # [V, 1, 3]
+    trim = trim0[:, None]
+    g = torch.zeros((v, 1), device=dev)
+    valid = torch.ones((v, 1), dtype=torch.bool, device=dev)
+    n_expanded = torch.zeros((v,), dtype=torch.int64, device=dev)
+    poses_l, trims_l, parents_l = [], [], []
+    b_in = 1
+    for k in range(hp):
+        b_out = widths[k]
+        # --- expansion: every (beam node, successor trim) pair -----------
+        allowed = mpa.transition[k][trim]                     # [V, B, n]
+        c = torch.cos(pose[..., 2])[..., None]                # [V, B, 1]
+        s = torch.sin(pose[..., 2])[..., None]
+        mdx = mpa.dx[trim]
+        mdy = mpa.dy[trim]
+        child_x = c * mdx - s * mdy + pose[..., 0:1]
+        child_y = s * mdx + c * mdy + pose[..., 1:2]
+        child_yaw = pose[..., 2:3] + mpa.dyaw[trim]
+        child_pos = torch.stack([child_x, child_y], dim=-1)   # [V, B, n, 2]
+
+        # --- costs (expand_node.m:61-73) ---------------------------------
+        diff = child_pos - ref_points[:, k, None, None, :]
+        g_child = g[..., None] + (diff[..., 0] * diff[..., 0]
+                                  + diff[..., 1] * diff[..., 1])
+        h_child = _cost_to_go(child_pos, ref_points, v_ref, k, dt)
+
+        # --- collision mask (eval_edge_exact capability) ------------------
+        cx, cy = _candidate_polys(mpa.area, trim, pose, c, s)
+        obs_k = type(obs_pre)(*(x[k] for x in obs_pre))
+        collide = outline_hits(cx, cy, obs_k).reshape(v, b_in, n)
+        if segments_pre is not None:
+            # boundary areas: without offset; larger offset at final step
+            table = (mpa.area_large_offset if k == hp - 1
+                     else mpa.area_no_offset)
+            bx, by = _candidate_polys(table, trim, pose, c, s)
+            collide |= boundary_hits(bx, by, segments_pre).reshape(
+                v, b_in, n)
+
+        feasible = valid[..., None] & allowed & ~collide      # [V, B, n]
+        n_expanded = n_expanded + feasible.sum(dim=(1, 2))
+        if b_out >= b_in * n:
+            # exhaustive layer: every candidate survives, no pruning
+            child_trim = torch.arange(n, device=dev).repeat(b_in)
+            parent = torch.arange(b_in, device=dev).repeat_interleave(n)
+            child_trim = child_trim.expand(v, -1)
+            parent = parent.expand(v, -1)
+            new_valid = feasible.reshape(v, -1)
+            new_pose = torch.stack([child_x, child_y, child_yaw],
+                                   dim=-1).reshape(v, -1, 3)
+            new_g = g_child.reshape(v, -1)
+        else:
+            # top-k with lower-index-first ties, as lax.top_k: a stable
+            # descending sort of the negated score
+            score = torch.where(feasible, g_child + h_child,
+                                torch.full_like(g_child, math.inf))
+            neg, flat_idx = torch.sort(-score.reshape(v, -1), dim=-1,
+                                       descending=True, stable=True)
+            neg, flat_idx = neg[:, :b_out], flat_idx[:, :b_out]
+            parent = flat_idx // n
+            child_trim = flat_idx % n
+            new_valid = neg > -math.inf
+            payload = torch.stack([child_x, child_y, child_yaw, g_child],
+                                  dim=-1).reshape(v, -1, 4)
+            sel = payload.gather(1, flat_idx[..., None].expand(-1, -1, 4))
+            new_pose = sel[..., :3]
+            new_g = sel[..., 3]
+        poses_l.append(new_pose)
+        trims_l.append(child_trim)
+        parents_l.append(parent)
+        pose, trim, g, valid = new_pose, child_trim, new_g, new_valid
+        b_in = b_out
+
+    # --- leaf selection: min g among valid leaves (h = 0 at depth Hp) ----
+    leaf_score = torch.where(valid, g, torch.full_like(g, math.inf))
+    best_leaf = torch.argmin(leaf_score, dim=-1)              # first minimum
+    is_exhausted = ~valid.any(dim=-1)
+    cost = leaf_score[rows, best_leaf]
+
+    # --- backtracking over per-layer parent pointers ---------------------
+    idx = best_leaf
+    trims_rev, poses_rev = [], []
+    for k in range(hp - 1, -1, -1):
+        trims_rev.append(trims_l[k][rows, idx])
+        poses_rev.append(poses_l[k][rows, idx])
+        idx = parents_l[k][rows, idx]
+    trims_path = torch.stack(trims_rev[::-1], dim=1)          # [V, Hp]
+    poses_path = torch.stack(poses_rev[::-1], dim=1)          # [V, Hp, 3]
+
+    # --- occupied swept areas along the chosen path ----------------------
+    parent_poses = torch.cat([x0[:, None], poses_path[:, :-1]], dim=1)
+    parent_trims = torch.cat([trim0[:, None], trims_path[:, :-1]], dim=1)
+    areas = mpa.area[parent_trims, trims_path]                # [V,Hp,VA,2]
+    c = torch.cos(parent_poses[..., 2])[..., None]
+    s = torch.sin(parent_poses[..., 2])[..., None]
+    sx = c * areas[..., 0] - s * areas[..., 1] + parent_poses[..., 0:1]
+    sy = s * areas[..., 0] + c * areas[..., 1] + parent_poses[..., 1:2]
+    return PlanResult(
+        trims=trims_path,
+        poses=poses_path,
+        shapes=torch.stack([sx, sy], dim=-1),
+        cost=cost,
+        is_exhausted=is_exhausted,
+        n_expanded=n_expanded,
+    )

@@ -1,0 +1,115 @@
+"""Where a control step's time goes on the card.
+
+    python -m pdmpc_torch.profile_step
+
+Builds the default 20-vehicle CommonRoad configuration (beam 512) on CUDA,
+runs WARMUP steps, times TIMED steps with the host clock (each ending in
+``torch.cuda.synchronize()``), then traces PROFILED more steps with
+``torch.profiler``. Prints the device operations that took the most device
+time and, as the last line, one JSON object: the card's name and power
+limit, the median step time, the device time of a step (kernels, copies
+and fills on the card) and of the two collision kernels, the idle share
+(one minus device time over the untraced median step time) and the
+launches, copies and stream synchronisations per step.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from pdmpc_torch import resolve_device
+from pdmpc_torch.config import Config
+from pdmpc_torch.controller import initial_state, make_prioritized_step
+from pdmpc_torch.experiment import create_scenario
+from pdmpc_torch.models.mpa import build_mpa
+
+WARMUP, TIMED, PROFILED = 3, 8, 4
+TOP = 15
+
+
+def main() -> int:
+    device = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    cfg = Config(amount=20, T_end=0.2 * (WARMUP + TIMED + PROFILED))
+    cfg = cfg.validate()
+    mpa = build_mpa(cfg)
+    mpa_t = mpa.to_tensors_for(cfg, device)
+    sc_t = create_scenario(cfg, mpa).to_tensors(device)
+    step = make_prioritized_step(cfg, mpa_t, sc_t)
+    state = initial_state(sc_t, cfg.Hp)
+
+    k = 0
+    for _ in range(WARMUP):
+        state, _ = step(state, k)
+        k += 1
+    torch.cuda.synchronize()
+    wall = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        state, _ = step(state, k)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        k += 1
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            state, _ = step(state, k)
+            k += 1
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+    events = prof.key_averages()
+
+    def per_step(names):
+        return sum(e.count for e in events if e.key in names) / PROFILED
+
+    # events on the card itself (kernels, copies, fills), not the host ops
+    # that launched them, which carry the same device time again
+    device_ops = [e for e in events if e.device_type == DeviceType.CUDA]
+
+    def device_ms(ops):
+        return sum(e.self_device_time_total for e in ops) / 1e3 / PROFILED
+
+    busy_ms = device_ms(device_ops)
+    median_ms = statistics.median(wall)
+    device_ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"{'device op':80s} {'calls/step':>10s} {'ms/step':>9s}")
+    for e in device_ops[:TOP]:
+        print(f"{e.key[:80]:80s} {e.count / PROFILED:10.1f} "
+              f"{device_ms([e]):9.3f}")
+    summary = {
+        "card": card,
+        "config": {"amount": cfg.amount, "beam_width": cfg.beam_width,
+                   "Hp": cfg.Hp},
+        "step_ms_median": median_ms,
+        "step_ms_traced": traced_ms,
+        "device_ms_per_step": busy_ms if device_ops else None,
+        "collision_kernels_ms_per_step": device_ms(
+            [e for e in device_ops if "hits_kernel" in e.key]),
+        "device_idle_share": (1.0 - busy_ms / median_ms
+                              if device_ops else None),
+        "launches_per_step": per_step({"cudaLaunchKernel",
+                                       "cudaLaunchKernelExC", "cuLaunchKernel",
+                                       "cuLaunchKernelEx"}),
+        "memcpy_per_step": per_step({"cudaMemcpyAsync", "cudaMemcpy"}),
+        "syncs_per_step": per_step({"cudaStreamSynchronize",
+                                    "cudaDeviceSynchronize"}),
+    }
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,53 @@
+"""The port stands alone: no module of pdmpc_torch, nor chip_smoke.py, loads
+jax or anything of pdmpc_tpu; and its entry points refuse to fall back to
+the CPU silently."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import pdmpc_torch
+names = [m.name for m in pkgutil.walk_packages(pdmpc_torch.__path__,
+                                               "pdmpc_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "pdmpc_tpu")))
+print(len(names), bad)
+"""
+
+
+def test_no_jax_and_no_reference_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 15
+    assert bad.strip() == "[]", bad
+
+
+def test_run_experiment_requires_cuda_by_default(monkeypatch):
+    from pdmpc_torch import Config
+    from pdmpc_torch.experiment import run_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_experiment(Config(amount=3, T_end=0.2, beam_width=8))
+
+
+def test_unported_config_raises():
+    from pdmpc_torch import Config, PriorityStrategies
+    from pdmpc_torch.experiment import run_experiment
+
+    with pytest.raises(NotImplementedError, match="constant_priority"):
+        run_experiment(Config(amount=3, T_end=0.2, beam_width=8,
+                              priority=PriorityStrategies.coloring_priority),
+                       device="cpu")

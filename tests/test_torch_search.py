@@ -1,0 +1,121 @@
+"""The port's beam search against the reference's on the reference's own
+planning inputs.
+
+The cr3 golden scenario is replayed step by step through pdmpc_tpu's
+``make_prioritized_step(..., debug_capture=True)``, which records every
+vehicle's exact planning inputs (pose, trim, reference samples, the
+obstacle snapshot it planned against and its mask, boundary segments).
+For every step, the port's ``plan_trajectory`` plans all vehicles in one
+batched call, on tables carried over with ``convert.mpa_from_numpy``, and
+is compared with pdmpc_tpu's ``plan_trajectory(use_pallas=False)`` (the
+XLA path the CPU goldens come from): trims, ``is_exhausted`` and
+``n_expanded`` equal; cost within rtol 1e-5 and poses within 1e-6.
+
+Why not rtol 1e-6 on the cost: XLA:CPU contracts ``a * b + c`` into a
+fused multiply-add (``c * dx - s * dy + x`` of every child pose, and the
+squared distances), while the port rounds every product as the CUDA
+kernels do. Poses then differ by an ulp, and the accumulated squared
+distances of a plan by up to 1.4e-6 relative (step 9 of this replay).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdmpc_torch import convert
+from pdmpc_torch.ops import search as tsearch
+from pdmpc_tpu.config import Config
+from pdmpc_tpu.controller import initial_state, make_prioritized_step
+from pdmpc_tpu.experiment import create_scenario
+from pdmpc_tpu.models.mpa import build_mpa
+from pdmpc_tpu.ops import search as jsearch
+
+# One intra-op thread per process: the suite runs in several pytest
+# workers at once, and a full torch thread pool in each of them
+# oversubscribes the cores (a file that takes seconds alone then takes
+# minutes).
+torch.set_num_threads(1)
+
+CFG = Config(amount=3, T_end=4.0, beam_width=64)
+
+
+@pytest.fixture(scope="module")
+def replay():
+    cfg = CFG.validate()
+    mpa = build_mpa(cfg)
+    mpa_t = mpa.to_tensors_for(cfg)
+    sc_t = create_scenario(cfg, mpa).to_tensors()
+    step = jax.jit(make_prioritized_step(cfg, mpa_t, sc_t,
+                                         debug_capture=True))
+    state = initial_state(sc_t, cfg.Hp)
+    caps = []
+    for k in range(cfg.k_end):
+        state, _, cap = step(state, jnp.asarray(k, dtype=jnp.int32))
+        caps.append({kk: np.asarray(v) for kk, v in cap.items()})
+    return cfg, mpa_t, caps
+
+
+def test_plans_match_reference(replay):
+    cfg, mpa_j, caps = replay
+    mpa = convert.mpa_from_numpy(
+        {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
+    hp = cfg.Hp
+
+    def ref_plan(x0, trim0, ref_p, v_ref, polys, mask, segs, smask):
+        obs = jsearch.Obstacles(polys=polys, mask=jnp.broadcast_to(
+            mask[:, None], (polys.shape[0], hp)))
+        return jsearch.plan_trajectory(
+            mpa_j, x0, trim0, ref_p, v_ref, obs, cfg.dt_seconds,
+            cfg.beam_width, boundary_segments=segs, boundary_mask=smask,
+            use_pallas=False, non_convex=True)
+
+    ref_plan = jax.jit(jax.vmap(ref_plan))
+    n_checked = n_hit_obstacles = 0
+    for k, cap in enumerate(caps):
+        args = (cap["pose0"], cap["trim0"], cap["ref_points"], cap["v_ref"],
+                cap["obs_polys"], cap["obs_mask"], cap["bnd_segs"],
+                cap["bnd_mask"])
+        want = ref_plan(*args)
+        t = {key: torch.tensor(cap[key]) for key in cap}
+        n_obs = cap["obs_mask"].shape[1]
+        got = tsearch.plan_trajectory(
+            mpa, t["pose0"], t["trim0"].long(), t["ref_points"], t["v_ref"],
+            tsearch.Obstacles(polys=t["obs_polys"], mask=t["obs_mask"][
+                :, :, None].expand(-1, n_obs, hp)),
+            cfg.dt_seconds, cfg.beam_width,
+            boundary_segments=t["bnd_segs"], boundary_mask=t["bnd_mask"],
+        )
+        msg = f"step {k}"
+        np.testing.assert_array_equal(got.trims.numpy(),
+                                      np.asarray(want.trims), err_msg=msg)
+        np.testing.assert_array_equal(got.is_exhausted.numpy(),
+                                      np.asarray(want.is_exhausted),
+                                      err_msg=msg)
+        np.testing.assert_array_equal(got.n_expanded.numpy(),
+                                      np.asarray(want.n_expanded),
+                                      err_msg=msg)
+        np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost),
+                                   rtol=1e-5, err_msg=msg)
+        np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses),
+                                   rtol=1e-6, atol=1e-6, err_msg=msg)
+        n_checked += len(cap["trim0"])
+        n_hit_obstacles += int(cap["obs_mask"].any(axis=1).sum())
+    assert n_checked == 3 * cfg.k_end
+    # the replay exercises the obstacle path, not only the boundary
+    assert n_hit_obstacles > 0
+
+
+def test_cost_to_go_matches_reference():
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(0, 4, size=(2, 5, 12, 2)).astype(np.float32)
+    ref = rng.uniform(0, 4, size=(2, 6, 2)).astype(np.float32)
+    v_ref = rng.uniform(0, 0.8, size=(2, 6)).astype(np.float32)
+    for k in range(6):
+        want = jax.vmap(lambda p, r, v: jsearch._cost_to_go(p, r, v, k, 0.2))(
+            pos, ref, v_ref)
+        got = tsearch._cost_to_go(torch.as_tensor(pos), torch.as_tensor(ref),
+                                  torch.as_tensor(v_ref), k, 0.2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7)
