@@ -5,14 +5,25 @@
 
 Phases, any failure exits non-zero:
 1. identify the card, build the CUDA kernels from pdmpc_torch/csrc/;
-2. hold each kernel against its plain PyTorch version at the main path's
-   shapes (exact mask equality) and time both with CUDA events;
-3. drive the main path — run_experiment on the default 20-vehicle
-   CommonRoad configuration (beam 512, 20 steps) — with the kernels'
-   launch counters zeroed just before and read just after, and check the
-   run is collision-free, moving and mostly fallback-free;
-4. golden gate: the beam-64 run against tests/expected_results/
-   commonroad_20veh.npz (same fallback pattern, total cost within 1%).
+2. hold each kernel against its plain PyTorch version (exact mask
+   equality) and time both with CUDA events: the outline and boundary
+   kernels at the road path's shapes, the SAT kernel at the circle path's;
+3. road path — run_experiment on the default 20-vehicle CommonRoad
+   configuration (beam 512, 20 steps) — with every kernel's launch counter
+   zeroed just before and read just after: the outline and boundary
+   kernels must launch, the SAT kernel must not; the run must be
+   collision-free, moving and mostly fallback-free;
+4. road golden gate: the beam-64 run against tests/expected_results/
+   commonroad_20veh.npz (same fallback pattern, total cost within 1%);
+5. convex path — run_experiment on the 10-vehicle circle (beam 512, Hp 6,
+   40 steps, the largest point of the reference's circle sweep), counters
+   zeroed again: the SAT kernel must launch and the road kernels must not;
+   collision-free, every vehicle moves more than 0.3 m;
+6. convex golden gate: circle_03veh_hp10 (Hp 10, beam 128) against its
+   golden, the same gate;
+7. plan level: one recorded planning chunk of each path planned twice,
+   with the kernels and with their plain versions swapped in; the trims,
+   costs and poses must be equal.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -30,13 +41,15 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(HERE, "tests", "expected_results",
-                      "commonroad_20veh.npz")
+GOLDEN_DIR = os.path.join(HERE, "tests", "expected_results")
 SEED = 0
-# main-path shapes: chunk of 2 vehicles, 6-vertex maneuver areas, beam 512
+# road-path shapes: chunk of 2 vehicles, 6-vertex maneuver areas, beam 512
 # x 12 trims, 3 obstacle families x 20 vehicles of 16 vertices, 8 predicted
 # lanelets x 22 boundary segments
 V, VA, C, N_OBS, VO, N_SEG = 2, 6, 512 * 12, 60, 16, 176
+# circle-path shapes of the SAT kernel: 5-vertex convex areas, 3 obstacle
+# families x 10 vehicles (padded to 32)
+VA_SAT, N_OBS_SAT = 5, 30
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -44,6 +57,11 @@ PEAK_BYTES = 3.35e12
 # qp (2), d, A, B (3 each), |d|, t_lim (2), m_lim, A*d, B*d, |A|, |B| and
 # five comparisons
 OPS_PER_PAIR = 25
+# f32 operations of the SAT test: a projection is a multiply, a fused
+# multiply-add and a min and a max; an axis test adds two differences and
+# two comparisons; a candidate's axes cost two differences, a multiply, a
+# fused multiply-add, a square root, a max and two divisions each
+OPS_PER_PROJECTION, OPS_PER_AXIS_TEST, OPS_PER_AXIS = 4, 4, 8
 
 
 def card_line() -> str:
@@ -56,31 +74,51 @@ def card_line() -> str:
 
 
 def rand_polys(rng, n, v, radius):
-    """n polygons of v vertices (sorted angles) at map scale."""
+    """n convex polygons of v vertices (sorted angles) at map scale."""
     centers = rng.uniform([0.0, 0.0], [4.5, 4.0], size=(n, 1, 2))
     ang = np.sort(rng.uniform(0, 2 * np.pi, size=(n, v)), axis=1)
     r = rng.uniform(0.5, 1.0, size=(n, 1)) * radius
     return centers + np.stack([r * np.cos(ang), r * np.sin(ang)], axis=-1)
 
 
-def kernel_inputs(torch, dev):
-    """Candidates [V, VA, C], obstacles [V, NO, VO], segments [V, S, 2, 2]:
-    random polygons near each other, exact touches (shared vertices and
-    edges, as on the trim lattice) and padded degenerate edges."""
-    rng = np.random.default_rng(SEED)
-    cand = rand_polys(rng, V * C, VA, 0.15).reshape(V, C, VA, 2)
-    obs = np.zeros((V, N_OBS, VO, 2))
-    n_real = rng.integers(4, 7, size=(V, N_OBS))
-    for v in range(V):
-        for o in range(N_OBS):
-            if o % 3 == 0:
-                # shares every edge with a candidate (trim-lattice touch)
-                poly = cand[v, rng.integers(C)]
-                n_real[v, o] = VA
+def pad_obstacles(rng, cand, n_obs, share_every=3):
+    """[V, n_obs, VO, 2] obstacles padded by repeating the last vertex:
+    every ``share_every``-th is a candidate polygon (exact touches, as on
+    the trim lattice), the others random polygons of 4 to 6 vertices."""
+    v_count, c_count, va = cand.shape[:3]
+    obs = np.zeros((v_count, n_obs, VO, 2))
+    n_real = rng.integers(4, 7, size=(v_count, n_obs))
+    for v in range(v_count):
+        for o in range(n_obs):
+            if o % share_every == 0:
+                poly = cand[v, rng.integers(c_count)]
+                n_real[v, o] = va
             else:
                 poly = rand_polys(rng, 1, n_real[v, o], 0.3)[0]
             obs[v, o, :n_real[v, o]] = poly[:n_real[v, o]]
-            obs[v, o, n_real[v, o]:] = poly[n_real[v, o] - 1]  # pad by repeat
+            obs[v, o, n_real[v, o]:] = poly[n_real[v, o] - 1]
+    return obs
+
+
+def tensor(torch, a, dev, dtype=None):
+    return torch.as_tensor(np.asarray(a), dtype=dtype or torch.float32,
+                           device=dev)
+
+
+def vertex_major(torch, cand, dev):
+    """[V, C, VA, 2] -> cx, cy [V, VA, C] contiguous on ``dev``."""
+    cxy = tensor(torch, cand, dev).permute(0, 3, 2, 1)
+    return cxy[:, 0].contiguous(), cxy[:, 1].contiguous()
+
+
+def kernel_inputs(torch, dev):
+    """Road-path inputs: candidates [V, VA, C], obstacles [V, NO, VO],
+    segments [V, S, 2, 2]: random polygons near each other, exact touches
+    (shared vertices and edges, as on the trim lattice) and padded
+    degenerate edges."""
+    rng = np.random.default_rng(SEED)
+    cand = rand_polys(rng, V * C, VA, 0.15).reshape(V, C, VA, 2)
+    obs = pad_obstacles(rng, cand, N_OBS)
     obs_mask = rng.random((V, N_OBS)) < 0.5
     segs = rng.uniform([0.0, 0.0], [4.5, 4.0], size=(V, N_SEG, 2, 2))
     # every 4th segment is a candidate edge or starts at a candidate vertex
@@ -91,11 +129,35 @@ def kernel_inputs(torch, dev):
             segs[v, s, 1] = p[2] if s % 8 == 0 else p[1] + rng.normal(
                 0, 0.2, 2)
     seg_mask = rng.random((V, N_SEG)) < 0.8
-    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
-        np.asarray(a), dtype=dt, device=dev)
-    cxy = t(cand).permute(0, 3, 2, 1)                 # [V, 2, VA, C]
-    return (cxy[:, 0].contiguous(), cxy[:, 1].contiguous(), t(obs),
-            t(obs_mask, torch.bool), t(segs), t(seg_mask, torch.bool))
+    return (*vertex_major(torch, cand, dev), tensor(torch, obs, dev),
+            tensor(torch, obs_mask, dev, torch.bool), tensor(torch, segs, dev),
+            tensor(torch, seg_mask, dev, torch.bool))
+
+
+def sat_inputs(torch, dev):
+    """Circle-path inputs of the SAT kernel: convex candidates [V, 5, C]
+    (every other one a 4-vertex area with its last vertex repeated, as the
+    straight maneuvers are), 30 convex obstacles a vehicle: every third a
+    candidate, every third an edge-sharing box (an exact touch), the rest
+    random; half of them masked."""
+    rng = np.random.default_rng(SEED + 1)
+    cand = rand_polys(rng, V * C, VA_SAT, 0.15).reshape(V, C, VA_SAT, 2)
+    cand[:, ::2, -1] = cand[:, ::2, -2]
+    obs = pad_obstacles(rng, cand, N_OBS_SAT)
+    for v in range(V):
+        for o in range(1, N_OBS_SAT, 3):
+            poly = cand[v, rng.integers(C)]
+            a, b = poly[0], poly[1]
+            normal = np.array([b[1] - a[1], a[0] - b[0]])
+            normal *= 0.2 / max(np.linalg.norm(normal), 1e-9)
+            if np.dot(normal, a - poly.mean(0)) < 0:
+                normal = -normal
+            box = np.stack([a, a + normal, b + normal, b])
+            obs[v, o, :4] = box
+            obs[v, o, 4:] = box[-1]
+    mask = rng.random((V, N_OBS_SAT)) < 0.5
+    return (*vertex_major(torch, cand, dev), tensor(torch, obs, dev),
+            tensor(torch, mask, dev, torch.bool))
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -114,6 +176,40 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def kernel_row(torch, name, fn, plain, cx, cy, pre, ops, in_bytes, src_line):
+    """Hold ``fn`` against ``plain`` (exact masks), time both, and return
+    the kernel's JSON row; ``ops(want)`` counts the least operations these
+    inputs need."""
+    got = fn(cx, cy, pre)
+    torch.cuda.synchronize()
+    want = plain(cx, cy, pre)
+    mismatches = int((got != want).sum())
+    max_abs_err = float((got.int() - want.int()).abs().max())
+    hit_share = float(want.float().mean())
+    print(f"kernel {name}: {mismatches} mismatches of {want.numel()}, "
+          f"hit share {hit_share:.4f}", flush=True)
+    if mismatches:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if not 0.0 < hit_share < 1.0:
+        raise AssertionError(f"{name}: degenerate test input")
+    ms = time_ms(torch, lambda: fn(cx, cy, pre))
+    plain_ms = time_ms(torch, lambda: plain(cx, cy, pre))
+    ops_ms = ops(want) / PEAK_F32_OPS * 1e3
+    bytes_ms = (in_bytes + want.numel()) / PEAK_BYTES * 1e3
+    print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {max(ops_ms, bytes_ms):.6f} ms", flush=True)
+    return {
+        "name": name, "route": "cuda",
+        "source": "pdmpc_torch/csrc/collision.cu",
+        "replaces": src_line,
+        "launches": None, "max_abs_err": max_abs_err,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
 def check_kernels(torch, coll, dev):
     """Phase 2: each kernel against its plain version, exact masks."""
     cx, cy, obs, obs_mask, segs, seg_mask = kernel_inputs(torch, dev)
@@ -130,38 +226,37 @@ def check_kernels(torch, coll, dev):
          4 * (cx.numel() * 2 + seg_pre.packed.numel() + seg_pre.mask.numel()),
          "pdmpc_tpu/ops/pallas_collision.py:374"),
     ):
-        got = fn(cx, cy, pre)
-        torch.cuda.synchronize()
-        want = plain(cx, cy, pre)
-        mismatches = int((got != want).sum())
-        max_abs_err = float((got.int() - want.int()).abs().max())
-        hit_share = float(want.float().mean())
-        print(f"kernel {name}: {mismatches} mismatches of {want.numel()}, "
-              f"hit share {hit_share:.4f}", flush=True)
-        if mismatches:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        if not 0.0 < hit_share < 1.0:
-            raise AssertionError(f"{name}: degenerate test input")
-        ms = time_ms(torch, lambda: fn(cx, cy, pre))
-        plain_ms = time_ms(torch, lambda: plain(cx, cy, pre))
-        # least work these inputs need: every pair of a candidate without
-        # a hit, one pair of a candidate with one
+        def ops(want, n_active=n_active):
+            # every pair of a candidate without a hit, one pair of a
+            # candidate with one
+            hits = want.sum(dim=1)
+            return float(((C - hits) * VA * n_active + hits).sum()) \
+                * OPS_PER_PAIR
+        rows.append(kernel_row(torch, name, fn, plain, cx, cy, pre, ops,
+                               in_bytes, src_line))
+
+    cx, cy, obs, obs_mask = sat_inputs(torch, dev)
+    sat_pre = coll.precompute_obstacles(obs, obs_mask)
+    n_active = sat_pre.mask.sum(dim=1)
+
+    def sat_ops(want):
+        # each candidate's own axes and extents; then one axis (the
+        # cheapest: an obstacle's, VA projections) for every active
+        # obstacle of a candidate without a hit, and every axis of one
+        # pair for a candidate with one
         hits = want.sum(dim=1)
-        pairs = float(((C - hits) * VA * n_active + hits).sum())
-        ops_ms = pairs * OPS_PER_PAIR / PEAK_F32_OPS * 1e3
-        bytes_ms = (in_bytes + want.numel()) / PEAK_BYTES * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "pdmpc_torch/csrc/collision.cu",
-            "replaces": src_line,
-            "launches": None, "max_abs_err": max_abs_err,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-        })
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(ops_ms, bytes_ms):.4f} ms", flush=True)
+        own = C * VA_SAT * (OPS_PER_AXIS + VA_SAT * OPS_PER_PROJECTION)
+        separated = VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST
+        overlap = (VA_SAT * (VO * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST)
+                   + VO * (VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST))
+        return float((own + (C - hits) * n_active * separated
+                      + hits * overlap).sum())
+
+    rows.append(kernel_row(
+        torch, "sat_hits", coll.sat_hits, coll.sat_hits_plain, cx, cy,
+        sat_pre, sat_ops,
+        4 * (cx.numel() * 2 + sat_pre.ox.numel() * 6 + sat_pre.mask.numel()),
+        "pdmpc_tpu/ops/pallas_collision.py:234"))
     return rows
 
 
@@ -196,6 +291,115 @@ def vehicle_collisions(poses, length, width):
     return hits
 
 
+KERNELS = ("outline_hits", "boundary_hits", "sat_hits")
+
+
+def drive(coll, run_experiment, cfg, card, label, launched, dims):
+    """Run ``cfg`` on the card with every launch counter zeroed first;
+    require the kernels in ``launched`` to launch and the others not to;
+    check the run (finite, collision-free, every vehicle moves > 0.3 m,
+    fallback share < 0.5) and print its step times. Returns the launch
+    counts."""
+    for name in KERNELS:
+        getattr(coll, name).launches = 0
+    res = run_experiment(cfg, device="cuda")
+    launches = {name: getattr(coll, name).launches for name in KERNELS}
+    print(f"{label} launches: {launches}", flush=True)
+    for name in KERNELS:
+        if (launches[name] > 0) != (name in launched):
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times")
+    poses = res.infos.poses[:, :, 0]                      # [k, N, 3]
+    if not np.isfinite(res.infos.poses).all():
+        raise AssertionError(f"{label}: non-finite poses")
+    collisions = vehicle_collisions(poses, *dims)
+    if collisions:
+        raise AssertionError(f"{label}: vehicle collisions: "
+                             f"{collisions[:10]}")
+    moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
+    if not (moved > 0.3).all():
+        raise AssertionError(f"{label}: stuck vehicles: moved {moved}")
+    fb_share = float(res.infos.needs_fallback.mean())
+    if fb_share >= 0.5:
+        raise AssertionError(f"{label}: fallback share {fb_share}")
+    steps = np.asarray(res.timings["step_seconds"]) * 1e3
+    solves = cfg.amount * res.n_steps / res.timings["control_loop"]
+    print(f"{label} ({card}): beam {cfg.beam_width}, Hp {cfg.Hp}, "
+          f"{res.n_steps} steps, {cfg.amount} vehicles, step median "
+          f"{np.median(steps):.3f} ms, p95 {np.percentile(steps, 95):.3f} "
+          f"ms, first step {steps[0]:.3f} ms, {solves:.1f} vehicle-solves/s, "
+          f"fallback share {fb_share:.4f}, min distance moved "
+          f"{moved.min():.3f} m, launches per step "
+          + ", ".join(f"{k} {v / res.n_steps:.2f}"
+                      for k, v in launches.items()), flush=True)
+    return launches
+
+
+def golden_gate(run_experiment, cfg, name):
+    """The gate bench.py holds the TPU to: same fallback pattern as the CPU
+    golden, total cost within 1%; also says whether the match is exact."""
+    gold = run_experiment(cfg, device="cuda")
+    with np.load(os.path.join(GOLDEN_DIR, name + ".npz")) as g:
+        ref = {k: g[k] for k in g.files}
+    if not (gold.infos.needs_fallback == ref["needs_fallback"]).all():
+        raise AssertionError(f"{name}: fallback pattern differs from golden")
+    cost, cost_ref = float(gold.infos.cost.sum()), float(ref["cost"].sum())
+    rel = abs(cost - cost_ref) / max(abs(cost_ref), 1e-9)
+    if rel > 0.01:
+        raise AssertionError(f"{name}: total cost off by {rel:.4%}")
+    exact = (np.allclose(gold.infos.poses, ref["poses"], rtol=1e-7,
+                         atol=1e-4)
+             and (gold.infos.trims == ref["trims"]).all()
+             and (gold.infos.levels == ref["levels"]).all())
+    print(f"golden gate {name}: fallbacks match, total cost rel diff "
+          f"{rel:.3e}, exact match {exact}", flush=True)
+
+
+def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
+    """Phase 7: record the planning chunks of a short run, take the one
+    with the most active obstacles, and plan it again twice: with the
+    kernels, and with their plain versions swapped into the search. The
+    plans must be equal."""
+    import pdmpc_torch.controller as ctl
+    from pdmpc_torch.ops import search
+
+    calls = []
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return search.plan_trajectory(*args, **kwargs)
+
+    ctl.plan_trajectory = recording
+    try:
+        run_experiment(cfg, device="cuda")
+    finally:
+        ctl.plan_trajectory = search.plan_trajectory
+    args, kwargs = max(calls, key=lambda c: int(c[0][5].mask.sum()))
+    if not args[5].mask.any():
+        raise AssertionError(f"{label}: no chunk planned against obstacles")
+    with_kernels = search.plan_trajectory(*args, **kwargs)
+    swapped = {name: getattr(search, name) for name in KERNELS}
+    for name in KERNELS:
+        setattr(search, name, getattr(coll, name + "_plain"))
+    try:
+        launches = {name: getattr(coll, name).launches for name in KERNELS}
+        plain = search.plan_trajectory(*args, **kwargs)
+        if launches != {name: getattr(coll, name).launches
+                        for name in KERNELS}:
+            raise AssertionError(f"{label}: a kernel ran in the plain plan")
+    finally:
+        for name, fn in swapped.items():
+            setattr(search, name, fn)
+    for field in ("trims", "cost", "poses", "is_exhausted", "n_expanded"):
+        a, b = getattr(with_kernels, field), getattr(plain, field)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {field} differs between the "
+                                 f"kernels and the plain versions")
+    print(f"plan level {label}: chunk of {args[1].shape[0]} vehicles, "
+          f"{int(args[5].mask.sum())} active obstacle slots: trims, costs "
+          f"and poses equal with kernels and plain versions", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -203,12 +407,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from pdmpc_torch import Config
+    from pdmpc_torch import Config, ScenarioType
     from pdmpc_torch.experiment import run_experiment
     from pdmpc_torch.models.bicycle import VEHICLE_LENGTH, VEHICLE_WIDTH
     from pdmpc_torch.ops import collision as coll
 
-    dev = torch.device("cuda")
+    dims = (VEHICLE_LENGTH, VEHICLE_WIDTH)
+    circle = ScenarioType.circle
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -222,61 +427,34 @@ def main() -> int:
     assert not torch.backends.cudnn.allow_tf32
 
     # ---- 2. kernels vs plain ----------------------------------------------
-    rows = check_kernels(torch, coll, dev)
+    rows = {row["name"]: row for row in check_kernels(torch, coll, "cuda")}
 
-    # ---- 3. main path -----------------------------------------------------
-    cfg = Config(amount=20, T_end=4.0)
-    coll.outline_hits.launches = 0
-    coll.boundary_hits.launches = 0
-    res = run_experiment(cfg, device="cuda")
-    launches = {"outline_hits": coll.outline_hits.launches,
-                "boundary_hits": coll.boundary_hits.launches}
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    print(f"main path launches: {launches}", flush=True)
-    if min(launches.values()) == 0:
-        raise AssertionError("a kernel of the main path was never launched")
-    poses = res.infos.poses[:, :, 0]                      # [k, N, 3]
-    if not np.isfinite(res.infos.poses).all():
-        raise AssertionError("non-finite poses")
-    collisions = vehicle_collisions(poses, VEHICLE_LENGTH, VEHICLE_WIDTH)
-    if collisions:
-        raise AssertionError(f"vehicle collisions: {collisions[:10]}")
-    moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
-    if not (moved > 0.3).all():
-        raise AssertionError(f"stuck vehicles: moved {moved}")
-    fb_share = float(res.infos.needs_fallback.mean())
-    if fb_share >= 0.5:
-        raise AssertionError(f"fallback share {fb_share}")
-    steps = np.asarray(res.timings["step_seconds"]) * 1e3
-    solves = cfg.amount * res.n_steps / res.timings["control_loop"]
-    print(f"main path ({card}): beam 512, {res.n_steps} steps, "
-          f"{cfg.amount} vehicles, step median {np.median(steps):.3f} ms, "
-          f"p95 {np.percentile(steps, 95):.3f} ms, first step "
-          f"{steps[0]:.3f} ms, {solves:.1f} vehicle-solves/s, fallback "
-          f"share {fb_share:.4f}, min distance moved {moved.min():.3f} m",
-          flush=True)
-
-    # ---- 4. golden gate ---------------------------------------------------
-    gold = run_experiment(Config(amount=20, T_end=4.0, beam_width=64),
-                          device="cuda")
-    with np.load(GOLDEN) as g:
-        ref = {k: g[k] for k in g.files}
-    if not (gold.infos.needs_fallback == ref["needs_fallback"]).all():
-        raise AssertionError("beam-64 fallback pattern differs from golden")
-    cost, cost_ref = float(gold.infos.cost.sum()), float(ref["cost"].sum())
-    rel = abs(cost - cost_ref) / max(abs(cost_ref), 1e-9)
-    if rel > 0.01:
-        raise AssertionError(f"beam-64 total cost off by {rel:.4%}")
-    exact = (np.allclose(gold.infos.poses, ref["poses"], rtol=1e-7,
-                         atol=1e-4)
-             and (gold.infos.trims == ref["trims"]).all()
-             and (gold.infos.levels == ref["levels"]).all())
-    print(f"golden gate commonroad_20veh: fallbacks match, total cost rel "
-          f"diff {rel:.3e}, exact match {exact}", flush=True)
+    # ---- 3. road path -----------------------------------------------------
+    road = drive(coll, run_experiment, Config(amount=20, T_end=4.0), card,
+                 "road path", ("outline_hits", "boundary_hits"), dims)
+    # ---- 4. road golden gate ----------------------------------------------
+    golden_gate(run_experiment, Config(amount=20, T_end=4.0, beam_width=64),
+                "commonroad_20veh")
+    # ---- 5. convex path ---------------------------------------------------
+    convex = drive(coll, run_experiment,
+                   Config(scenario_type=circle, amount=10, T_end=8.0), card,
+                   "circle path", ("sat_hits",), dims)
+    for name in ("outline_hits", "boundary_hits"):
+        rows[name]["launches"] = road[name]
+    rows["sat_hits"]["launches"] = convex["sat_hits"]
+    # ---- 6. convex golden gate --------------------------------------------
+    golden_gate(run_experiment,
+                Config(scenario_type=circle, amount=3, T_end=2.0, Hp=10,
+                       beam_width=128), "circle_03veh_hp10")
+    # ---- 7. plan level: kernels against plain versions --------------------
+    plans_with_plain_versions(torch, coll, run_experiment,
+                              Config(amount=20, T_end=1.0), "road chunk")
+    plans_with_plain_versions(torch, coll, run_experiment,
+                              Config(scenario_type=circle, amount=10,
+                                     T_end=3.0), "circle chunk")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,16 +4,19 @@ Torch twin of pdmpc_tpu/controller.py's single-program prioritized step
 (``make_prioritized_step`` with ``LocalComm`` and the compact chunk loop).
 One control period:
 
-measure -> traffic info (reference trajectory, predicted lanelets and
-boundary segments, occupied areas, corridor-bounded reachable sets) ->
-couple (reachable-set overlap) -> prioritize (constant) -> weigh
-(distance) -> greedy cut -> Kahn levels -> dataflow chunk schedule ->
-plan each chunk of vehicles as one batched beam search against the
-obstacle families -> exhaustion and fallback handling -> apply.
+measure -> traffic info (reference trajectory, occupied areas, reachable
+sets; on a road also predicted lanelets and boundary segments, and the
+reachable sets bounded to the lane corridor) -> couple (reachable-set
+overlap) -> prioritize (constant) -> weigh (distance) -> greedy cut ->
+Kahn levels -> dataflow chunk schedule -> plan each chunk of vehicles as
+one batched beam search against the obstacle families (outline crossing
+or SAT, as ``Config.use_non_convex_obstacles`` says) -> exhaustion and
+fallback handling -> apply. Road (commonroad) and free-space (circle)
+scenarios both run.
 
-Configurations outside this main path (other coupling, priority or weight
-strategies, HDVs, sampled or centralized search, free-space scenarios,
-the dense level loop) are not ported yet and raise NotImplementedError.
+Configurations outside this path (other coupling, priority or weight
+strategies, HDVs, static obstacles, sampled or centralized search, the
+dense level loop) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -104,7 +107,6 @@ def initial_state(scenario: ScenarioTensors, hp: int) -> StepState:
 def check_main_path(cfg: Config, scenario: ScenarioTensors) -> None:
     """Raise NotImplementedError for anything outside the ported path."""
     wanted = [
-        (scenario.road is not None, "a road (commonroad) scenario"),
         (scenario.static_obstacles is None, "no static obstacles"),
         (cfg.is_prioritized, "prioritized planning"),
         (cfg.computation_mode == ComputationMode.sequential,
@@ -115,7 +117,6 @@ def check_main_path(cfg: Config, scenario: ScenarioTensors) -> None:
          "constant_priority"),
         (cfg.weight == WeightStrategies.distance_weight, "distance_weight"),
         (cfg.optimizer_type.is_optimal, "the optimal (beam) optimizer"),
-        (cfg.use_non_convex_obstacles, "non-convex obstacles"),
         (cfg.isDealPredictionInconsistency, "reachable-set avoidance"),
         (cfg.constraint_from_successor
          == ConstraintFromSuccessor.area_of_standstill,
@@ -286,32 +287,40 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     comm = LocalComm(n)
     not_self = ~torch.eye(n, dtype=torch.bool, device=dev)
     road = scenario.road
+    # obstacle-geometry dispatch (OptimizerInterface.m:36-46): outline
+    # crossing for road scenarios, SAT for the circle (or as overridden)
+    non_convex = cfg.use_non_convex_obstacles
 
     def step(state: StepState, k: int):
         # ---- local traffic info ------------------------------------------
         ref_points, v_ref, seg_idx, proj_seg = _reference_trajectory(
             mpa, scenario, state.pose, state.trim, dt
         )
-        # predicted lanelets -> boundary segments and corridor rings
-        # (get_predicted_lanelets.m + get_lanelets_boundary.m)
-        lane_of = scenario.segment_lanelet                   # [N, P-1]
-        ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
-                         lane_of.gather(1, seg_idx)], dim=1)  # [N, Hp+1]
-        uids = _unique_padded(ids, _n_predicted_lanelets(hp))
-        bnd_segs = road.boundary_segments[uids].reshape(n, -1, 2, 2)
-        bnd_mask = road.boundary_seg_mask[uids].reshape(n, -1)
-        corridor_rings = road.corridor_rings[uids]           # [N, L, R, 2]
-        # segment geometry is layer- and chunk-invariant: one bundle per step
-        seg_pre = precompute_segments(bnd_segs, bnd_mask)
+        reachable_sets = _reachable_sets_at_pose(mpa, state.pose,
+                                                 state.trim)  # [N, Hp, K, 2]
+        seg_pre = None
+        if road is not None:
+            # predicted lanelets -> boundary segments and corridor rings
+            # (get_predicted_lanelets.m + get_lanelets_boundary.m)
+            lane_of = scenario.segment_lanelet               # [N, P-1]
+            ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
+                             lane_of.gather(1, seg_idx)], dim=1)  # [N, Hp+1]
+            uids = _unique_padded(ids, _n_predicted_lanelets(hp))
+            bnd_segs = road.boundary_segments[uids].reshape(n, -1, 2, 2)
+            bnd_mask = road.boundary_seg_mask[uids].reshape(n, -1)
+            corridor_rings = road.corridor_rings[uids]       # [N, L, R, 2]
+            # segment geometry is layer- and chunk-invariant: one bundle
+            # per step
+            seg_pre = precompute_segments(bnd_segs, bnd_mask)
+            # reachable sets bounded by the drivable corridor before they
+            # feed coupling and avoidance (bound_reachable_sets.m:1-50)
+            reachable_sets = geo.bound_convex_to_corridor(
+                reachable_sets, corridor_rings[:, None], bnd_segs[:, None],
+                bnd_mask[:, None],
+            )
 
         occupied_offset = _occupied_area(state.pose, cfg.offset)
         occupied_no_offset = _occupied_area(state.pose, 0.0)
-        # reachable sets bounded by the drivable corridor before they feed
-        # coupling and avoidance (bound_reachable_sets.m:1-50)
-        reachable_sets = geo.bound_convex_to_corridor(
-            _reachable_sets_at_pose(mpa, state.pose, state.trim),
-            corridor_rings[:, None], bnd_segs[:, None], bnd_mask[:, None],
-        )                                                    # [N, Hp, K, 2]
 
         # ---- coupling graph, priorities, weights, cut, levels ------------
         pose_g, trim_g, rs_g, occupied_offset_g = comm.gather_tree(
@@ -360,7 +369,9 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             result = plan_trajectory(
                 mpa, state.pose[idx], state.trim[idx], ref_points[idx],
                 v_ref[idx], obstacles, dt, cfg.beam_width,
-                segments_pre=SegmentsPre(*(x[idx] for x in seg_pre)),
+                segments_pre=(None if seg_pre is None else
+                              SegmentsPre(*(x[idx] for x in seg_pre))),
+                non_convex=non_convex,
             )
             trims[idx] = result.trims
             poses[idx] = result.poses

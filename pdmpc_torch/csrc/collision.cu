@@ -23,8 +23,26 @@
 // never cross) into shared memory, then every thread scans them and stops
 // at its first hit. The work is bounded by operations (candidate edges x
 // active segments), not by the few hundred KB of inputs.
+//
+// sat_hits replaces pdmpc_tpu/ops/pallas_collision.py::_sat_kernel (reached
+// through sat_hits_pre): per candidate convex polygon, whether it overlaps
+// an active convex obstacle, i.e. no edge normal of either polygon separates
+// them. It follows the XLA form of pdmpc_tpu/ops/search.py
+// (_sat_separates_batch), not the Pallas kernel's unnormalized axes:
+//   axis = (-ey, ex) / max(sqrt(fma(ay, ay, ax * ax)), 1e-9),
+//   projection = fma(ay, y, ax * x),
+//   separated on an axis iff min(pa) - max(pb) > 0 or min(pb) - max(pa) > 0,
+// each multiply-add fused with __fmaf_rn, the square root and the division
+// rounded to nearest (pdmpc_torch/ops/collision.py says why). Same design:
+// the candidate's vertices, normalized axes and own extents in registers;
+// the vehicle's active obstacles (vertices, normalized axes and own-axis
+// extents from the bundle) compacted into shared memory; per obstacle the
+// candidate's axes first, then the obstacle's, leaving at the first
+// separating axis, and the candidate leaves at its first overlap. Zero axes
+// (repeated vertices) project everything to 0 and never separate: skipped.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -139,6 +157,121 @@ __global__ void boundary_hits_kernel(const float* __restrict__ cx,
                  blockIdx.x * blockDim.x + threadIdx.x);
 }
 
+__device__ __forceinline__ float project(float ax, float ay, float x,
+                                         float y) {
+  return __fmaf_rn(ay, y, __fmul_rn(ax, x));
+}
+
+// Stage rows per active obstacle in shared memory: x, y, ax, ay, mn, mx,
+// each `vo` floats.
+constexpr int kSatRows = 6;
+
+__global__ void sat_hits_kernel(
+    const float* __restrict__ cx, const float* __restrict__ cy,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oax, const float* __restrict__ oay,
+    const float* __restrict__ omn, const float* __restrict__ omx,
+    const int32_t* __restrict__ mask, uint8_t* __restrict__ out, int va,
+    int c_total, int n_obs, int vo) {
+  extern __shared__ float stage[];  // [n_active][kSatRows][vo], then ids
+  int* active_ids = reinterpret_cast<int*>(stage + n_obs * kSatRows * vo);
+  __shared__ int n_active;
+  const int v = blockIdx.y;
+  if (threadIdx.x == 0) n_active = 0;
+  __syncthreads();
+  for (int o = threadIdx.x; o < n_obs; o += blockDim.x) {
+    if (mask[(size_t)v * n_obs + o] > 0) {
+      active_ids[atomicAdd(&n_active, 1)] = o;
+    }
+  }
+  __syncthreads();
+  const int n_act = n_active;
+  const float* fields[kSatRows] = {ox, oy, oax, oay, omn, omx};
+  for (int e = threadIdx.x; e < n_act * kSatRows * vo; e += blockDim.x) {
+    const int a = e / (kSatRows * vo);
+    const int r = (e / vo) % kSatRows;
+    const int k = e % vo;
+    stage[e] = fields[r][((size_t)v * n_obs + active_ids[a]) * vo + k];
+  }
+  __syncthreads();
+
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= c_total) return;
+  float px[kMaxVa], py[kMaxVa], nax[kMaxVa], nay[kMaxVa], cmn[kMaxVa],
+      cmx[kMaxVa];
+  const size_t base = (size_t)v * va * c_total + c;
+#pragma unroll
+  for (int i = 0; i < kMaxVa; ++i) {
+    if (i < va) {
+      px[i] = cx[base + (size_t)i * c_total];
+      py[i] = cy[base + (size_t)i * c_total];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxVa; ++i) {
+    if (i < va) {
+      const int j = (i + 1 == va) ? 0 : i + 1;
+      const float ax = -(py[j] - py[i]);
+      const float ay = px[j] - px[i];
+      const float norm =
+          fmaxf(__fsqrt_rn(__fmaf_rn(ay, ay, __fmul_rn(ax, ax))), 1e-9f);
+      nax[i] = __fdiv_rn(ax, norm);
+      nay[i] = __fdiv_rn(ay, norm);
+      float mn = INFINITY, mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kMaxVa; ++w) {
+        if (w < va) {
+          const float p = project(nax[i], nay[i], px[w], py[w]);
+          mn = fminf(mn, p);
+          mx = fmaxf(mx, p);
+        }
+      }
+      cmn[i] = mn;
+      cmx[i] = mx;
+    }
+  }
+
+  bool hit = false;
+  for (int a = 0; a < n_act && !hit; ++a) {
+    const float* sx = stage + a * kSatRows * vo;
+    const float* sy = sx + vo;
+    const float* sax = sy + vo;
+    const float* say = sax + vo;
+    const float* smn = say + vo;
+    const float* smx = smn + vo;
+    bool sep = false;
+    // obstacle vertices on the candidate's axes
+#pragma unroll
+    for (int i = 0; i < kMaxVa; ++i) {
+      if (sep || i >= va || (nax[i] == 0.0f && nay[i] == 0.0f)) continue;
+      float mn = INFINITY, mx = -INFINITY;
+      for (int w = 0; w < vo; ++w) {
+        const float p = project(nax[i], nay[i], sx[w], sy[w]);
+        mn = fminf(mn, p);
+        mx = fmaxf(mx, p);
+      }
+      sep = (cmn[i] - mx > 0.0f) || (mn - cmx[i] > 0.0f);
+    }
+    // candidate vertices on the obstacle's axes
+    for (int k = 0; k < vo && !sep; ++k) {
+      const float ax = sax[k], ay = say[k];
+      if (ax == 0.0f && ay == 0.0f) continue;
+      float mn = INFINITY, mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kMaxVa; ++w) {
+        if (w < va) {
+          const float p = project(ax, ay, px[w], py[w]);
+          mn = fminf(mn, p);
+          mx = fmaxf(mx, p);
+        }
+      }
+      sep = (mn - smx[k] > 0.0f) || (smn[k] - mx > 0.0f);
+    }
+    hit = !sep;
+  }
+  out[(size_t)v * c_total + c] = hit ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -164,6 +297,21 @@ int boundary_hits(const float* cx, const float* cy, const float* packed,
   const size_t smem = (size_t)s_pad * sizeof(Seg);
   boundary_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       cx, cy, packed, mask, out, va, c, s_pad);
+  return (int)cudaGetLastError();
+}
+
+// cx, cy: [V, VA, C] f32; ox, oy, oax, oay, omn, omx: [V, NO, VO] f32;
+// mask: [V, NO] i32; out: [V, C] u8. Returns the cudaError_t of the launch.
+int sat_hits(const float* cx, const float* cy, const float* ox,
+             const float* oy, const float* oax, const float* oay,
+             const float* omn, const float* omx, const int32_t* mask,
+             uint8_t* out, int v, int va, int c, int n_obs, int vo,
+             void* stream) {
+  const dim3 grid((c + kThreads - 1) / kThreads, v);
+  const size_t smem = (size_t)n_obs * (kSatRows * vo * sizeof(float) +
+                                       sizeof(int));
+  sat_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      cx, cy, ox, oy, oax, oay, omn, omx, mask, out, va, c, n_obs, vo);
   return (int)cudaGetLastError();
 }
 

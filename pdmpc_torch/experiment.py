@@ -24,12 +24,16 @@ from pdmpc_torch.controller import (
     make_run,
 )
 from pdmpc_torch.models.mpa import Mpa, build_mpa
+from pdmpc_torch.scenarios.circle import create_circle_scenario
 from pdmpc_torch.scenarios.commonroad import create_commonroad_scenario
 from pdmpc_torch.scenarios.scenario import Scenario
 
 
 def create_scenario(options: Config, mpa: Mpa) -> Scenario:
-    """Scenario factory (scenarios/Scenario.m:75-88); commonroad only."""
+    """Scenario factory (scenarios/Scenario.m:75-88): circle and
+    commonroad."""
+    if options.scenario_type == ScenarioType.circle:
+        return create_circle_scenario(options, mpa)
     if options.scenario_type != ScenarioType.commonroad:
         raise NotImplementedError(
             f"scenario {options.scenario_type.value!r} is not ported yet"

@@ -1,13 +1,16 @@
 """Collision masks of the beam search: obstacle-outline and lanelet-boundary
-crossing, as hand-written CUDA kernels with plain PyTorch twins.
+crossing and convex (SAT) overlap, as hand-written CUDA kernels with plain
+PyTorch twins.
 
-Replaces the two Pallas TPU kernels of the main (road) path in
-pdmpc_tpu/ops/pallas_collision.py:
+Replaces the three Pallas TPU kernels of pdmpc_tpu/ops/pallas_collision.py:
 
 - ``outline_hits``  <- ``_outline_kernel`` via ``outline_hits_pre``
-  (bundle ``precompute_outline``);
+  (bundle ``precompute_outline``; road path);
 - ``boundary_hits`` <- ``_boundary_kernel`` via ``boundary_hits_pre``
-  (bundle ``precompute_segments``).
+  (bundle ``precompute_segments``; road path);
+- ``sat_hits``      <- ``_sat_kernel`` via ``sat_hits_pre``
+  (bundle ``precompute_obstacles``; convex path: circle scenario and
+  ``obstacle_geometry="convex"``).
 
 Layout: candidates arrive vertex-major per vehicle, ``cx, cy [V, VA, C]``
 (C = beam x trims), so one launch covers a whole planning chunk of V
@@ -20,7 +23,10 @@ thread per candidate, the vehicle's active edges compacted into shared
 memory, early exit on the first hit) keeps every pair in registers and
 shared memory; skipping masked obstacles and degenerate padded edges is
 exact. What it leaves for later: warp-tiled candidates and bounding-box
-culling with a proven tolerance margin.
+culling with a proven tolerance margin. The SAT kernel has the same
+design; there a separated pair needs a single axis, so the least work of
+a typical mask is below the time to read its candidates once, and bytes
+bound it.
 
 Numerics: kernels and plain versions compute the crossing predicate in
 the XLA form of ``pdmpc_tpu.ops.search.candidate_boundary_violations``
@@ -28,6 +34,27 @@ the XLA form of ``pdmpc_tpu.ops.search.candidate_boundary_violations``
 form ``b1 x s - a1 x s``: the CPU goldens were made on the XLA path.
 Every product is rounded on its own (the CUDA source is built with
 ``-fmad=false``), so kernel and plain version agree bit for bit.
+
+The SAT test also follows the XLA form,
+``pdmpc_tpu.ops.search._sat_separates_batch``, not the Pallas kernel's:
+
+- an edge (ex, ey) has the normal (-ey, ex), normalized by
+  ``max(sqrt(fma(ay, ay, ax * ax)), 1e-9)`` (the Pallas kernel drops the
+  normalization; on touching polygons the two can part ways);
+- a vertex projects on a normal as ``fma(ay, y, ax * x)``;
+- polygons are separated on an axis where ``min(pa) - max(pb) > 0`` or
+  ``min(pb) - max(pa) > 0``.
+
+That is how XLA:CPU evaluates the reference's norm and its d = 2 einsum:
+of the placements of the multiply-adds, only this one matches the XLA
+output everywhere (tests/test_torch_numerics.py). The kernel fuses with
+``__fmaf_rn`` and rounds the square root and the division to nearest, the
+plain version fuses with ``geometry.fma``; the two agree bit for bit.
+XLA:CPU's vectorized f32 square root is itself one ulp above the rounded
+one for some inputs (the same test file counts them), so the port agrees
+with the XLA path on decisions, and on the axes to an ulp. Skipping a
+masked obstacle or a zero axis (a repeated vertex: every projection on it
+is 0) is exact.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -44,17 +71,25 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from pdmpc_torch.ops.geometry import fma
+
 # Parameter-space tolerance of the crossing predicate
 # (pdmpc_tpu/ops/search.py SEG_CROSS_TOL; also hard-coded in the kernel).
 SEG_CROSS_TOL = 1e-4
 # Bundle padding granules, kept from the reference bundles so the padded
-# shapes match (pallas_collision.OUTLINE_GROUP / SEG_GROUP).
+# shapes match (pallas_collision.OUTLINE_GROUP / SEG_GROUP / OBS_GROUP).
 OUTLINE_GROUP = 8
 SEG_GROUP = 32
+OBS_GROUP = 32
+# Obstacles per step of the plain SAT version, to bound its memory
+# (pdmpc_tpu/ops/search.py OBS_CHUNK).
+SAT_CHUNK = 8
 # Most candidate vertices one kernel thread holds in registers.
 MAX_VA = 8
-# Shared-memory budget of one block's staged edges (4 floats each).
-_MAX_STAGED_EDGES = 48 * 1024 // 16
+# Shared-memory budget of one block's stage: 48 KB of segments (4 floats
+# each) or of obstacle vertices (6 floats each: vertex, axis, extents).
+_SMEM_BYTES = 48 * 1024
+_MAX_STAGED_EDGES = _SMEM_BYTES // 16
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                     "collision.cu")
@@ -97,6 +132,8 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         lib.outline_hits.restype = i32
         lib.boundary_hits.argtypes = [ptr] * 4 + [ptr] + [i32] * 4 + [ptr]
         lib.boundary_hits.restype = i32
+        lib.sat_hits.argtypes = [ptr] * 9 + [ptr] + [i32] * 5 + [ptr]
+        lib.sat_hits.restype = i32
         _lib = lib
         return lib
 
@@ -170,6 +207,57 @@ def precompute_segments(segments: torch.Tensor,
     return SegmentsPre(packed=packed, mask=mask.contiguous())
 
 
+def sat_axes(x, y, dim: int):
+    """Normalized edge normals (XLA form) of polygons whose vertex
+    coordinates ``x, y`` run along ``dim``: edge i -> i+1 (cyclic) gives
+    (-ey, ex) / max(|.|, 1e-9)."""
+    ax = -(torch.roll(y, -1, dims=dim) - y)
+    ay = torch.roll(x, -1, dims=dim) - x
+    norm = torch.clamp_min(torch.sqrt(fma(ay, ay, ax * ax)), 1e-9)
+    return ax / norm, ay / norm
+
+
+def sat_project(ax, ay, x, y):
+    """Projection of vertices (x, y) on axes (ax, ay), as XLA:CPU
+    evaluates the reference's d = 2 einsum: fma(ay, y, ax * x)."""
+    return fma(ay, y, ax * x)
+
+
+class ObstaclesPre(NamedTuple):
+    """SAT obstacle bundle (pallas_collision.ObstaclesPre in the XLA form,
+    without the tile bounding boxes): ox/oy [..., NO_pad, VO] vertices;
+    oax/oay [..., NO_pad, VO] the normalized normal of edge v -> v+1;
+    omn/omx [..., NO_pad, VO] the least and largest projection of the
+    obstacle's own vertices on it; mask [..., NO_pad] i32."""
+
+    ox: torch.Tensor
+    oy: torch.Tensor
+    oax: torch.Tensor
+    oay: torch.Tensor
+    omn: torch.Tensor
+    omx: torch.Tensor
+    mask: torch.Tensor
+
+
+def precompute_obstacles(obs_polys: torch.Tensor,
+                         obs_mask: torch.Tensor) -> ObstaclesPre:
+    """obs_polys [..., NO, VO, 2], obs_mask [..., NO] -> ObstaclesPre, NO
+    padded to a multiple of 32 with all-zero, masked polygons."""
+    n_obs = obs_polys.shape[-3]
+    no_pad = -(-n_obs // OBS_GROUP) * OBS_GROUP
+    obs = _pad_dim(obs_polys, no_pad, -3)
+    mask = _pad_dim(obs_mask.to(torch.int32), no_pad, -1)
+    ox, oy = obs[..., 0].contiguous(), obs[..., 1].contiguous()
+    oax, oay = sat_axes(ox, oy, -1)
+    proj = sat_project(oax[..., :, None], oay[..., :, None],
+                       ox[..., None, :], oy[..., None, :])  # [.., axis, vtx]
+    return ObstaclesPre(ox=ox, oy=oy, oax=oax.contiguous(),
+                        oay=oay.contiguous(),
+                        omn=proj.amin(dim=-1).contiguous(),
+                        omx=proj.amax(dim=-1).contiguous(),
+                        mask=mask.contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Plain versions (XLA form, no skipping)
 # ---------------------------------------------------------------------------
@@ -230,6 +318,36 @@ def boundary_hits_plain(cx, cy, pre: SegmentsPre) -> torch.Tensor:
         rows = pre.packed[:, :, s:s + SEG_GROUP]
         hit |= _crossings_plain(cx, cy, rows[:, 2], rows[:, 3], rows[:, 0],
                                 rows[:, 1], pre.mask[:, s:s + SEG_GROUP] > 0)
+    return hit
+
+
+def sat_hits_plain(cx, cy, pre: ObstaclesPre) -> torch.Tensor:
+    """[V, C] bool: a candidate polygon (cx, cy [V, VA, C]) overlaps an
+    active obstacle, i.e. no normal of either polygon separates them
+    (obstacles taken SAT_CHUNK at a time to bound memory)."""
+    v, _, c = cx.shape
+    no = pre.ox.shape[1]
+    nax, nay = sat_axes(cx, cy, 1)                           # [V, VA, C]
+    own = sat_project(nax[:, :, None], nay[:, :, None], cx[:, None],
+                      cy[:, None])                           # [V, k, v, C]
+    cmn = own.amin(dim=2)[..., None]                         # [V, VA, C, 1]
+    cmx = own.amax(dim=2)[..., None]
+    hit = torch.zeros((v, c), dtype=torch.bool, device=cx.device)
+    for o in range(0, no, SAT_CHUNK):
+        part = [f[:, o:o + SAT_CHUNK] for f in pre[:6]]      # [V, G, VO]
+        ox, oy, oax, oay, omn, omx = part
+        # obstacle vertices on the candidate's normals: [V, VA, C, G, VO]
+        pb = sat_project(nax[..., None, None], nay[..., None, None],
+                         ox[:, None, None], oy[:, None, None])
+        sep = ((cmn - pb.amax(dim=-1) > 0)
+               | (pb.amin(dim=-1) - cmx > 0)).any(dim=1)     # [V, C, G]
+        # candidate vertices on the obstacle's normals: [V, VA, C, G, VO]
+        pa = sat_project(oax[:, None, None], oay[:, None, None],
+                         cx[..., None, None], cy[..., None, None])
+        sep |= ((pa.amin(dim=1) - omx[:, None] > 0)
+                | (omn[:, None] - pa.amax(dim=1) > 0)).any(dim=-1)
+        active = pre.mask[:, None, o:o + SAT_CHUNK] > 0      # [V, 1, G]
+        hit |= (~sep & active).any(dim=-1)
     return hit
 
 
@@ -327,3 +445,40 @@ def boundary_hits(cx: torch.Tensor, cy: torch.Tensor,
 
 
 boundary_hits.launches = 0
+
+
+def sat_hits(cx: torch.Tensor, cy: torch.Tensor,
+             pre: ObstaclesPre) -> torch.Tensor:
+    """[V, C] SAT overlap mask of candidates cx, cy [V, VA, C] against the
+    obstacle bundle ``pre`` (leading dim V)."""
+    _check_candidates(cx, cy)
+    if cx.device.type == "cpu":
+        return sat_hits_plain(cx, cy, pre)
+    v, va, c = cx.shape
+    no, vo = pre.ox.shape[1:]
+    _check_operand(cx, "cx", (v, va, c), torch.float32, cx.device)
+    _check_operand(cy, "cy", (v, va, c), torch.float32, cx.device)
+    for name in ("ox", "oy", "oax", "oay", "omn", "omx"):
+        _check_operand(getattr(pre, name), name, (v, no, vo), torch.float32,
+                       cx.device)
+    _check_operand(pre.mask, "mask", (v, no), torch.int32, cx.device)
+    if no * (6 * vo + 1) * 4 > _SMEM_BYTES:
+        raise ValueError(f"{no} obstacles of {vo} vertices exceed the "
+                         f"shared-memory stage of {_SMEM_BYTES} bytes")
+    out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
+    if out.numel() == 0:
+        return out
+    lib = build_kernels()
+    err = lib.sat_hits(
+        cx.data_ptr(), cy.data_ptr(), pre.ox.data_ptr(), pre.oy.data_ptr(),
+        pre.oax.data_ptr(), pre.oay.data_ptr(), pre.omn.data_ptr(),
+        pre.omx.data_ptr(), pre.mask.data_ptr(), out.data_ptr(), v, va, c,
+        no, vo, torch.cuda.current_stream(cx.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sat_hits kernel launch failed: CUDA error {err}")
+    sat_hits.launches += 1
+    return out
+
+
+sat_hits.launches = 0

@@ -8,9 +8,12 @@ zero-length edges that every function here treats as inert.
 
 Arithmetic is written op by op in the reference's order, and every 2-wide
 contraction (the reference's ``Precision.HIGHEST`` matmuls) is spelled out
-as ``x * a + y * b``: no TF32, no fused multiply-add, so CPU and CUDA runs
-round the same way and discrete decisions (coupling, corridor membership)
-follow the reference.
+as ``x * a + y * b``: no TF32, so CPU and CUDA runs round the same way and
+discrete decisions (coupling, corridor membership) follow the reference.
+Where the reference's XLA:CPU code contracts a product into a fused
+multiply-add in the search (poses, costs, SAT projections) and in the
+distance weights, the port calls :func:`fma` at that place instead
+(tests/test_torch_numerics.py finds the placements).
 """
 
 from __future__ import annotations
@@ -20,6 +23,28 @@ import math
 import torch
 
 _EPS = 1e-9
+_FUSED_DEVICES: set[str] = set()
+
+
+def _check_fused(device: torch.device) -> None:
+    """Raise unless ``torch.addcmul`` rounds once on ``device``: with
+    a = b = 1 + 2**-12 and c = -1, the fused result is 2**-11 + 2**-24 and
+    the twice-rounded one 2**-11 (1031 elements: vector body and tail)."""
+    a = torch.full((1031,), 1.0 + 2.0 ** -12, device=device)
+    got = torch.addcmul(torch.full_like(a, -1.0), a, a)
+    if not bool((got == 2.0 ** -11 + 2.0 ** -24).all()):
+        raise RuntimeError(f"torch.addcmul is not a fused multiply-add on "
+                           f"{device}; the port's numerics need one")
+    _FUSED_DEVICES.add(str(device))
+
+
+def fma(a, b, c):
+    """``a * b + c`` rounded once (f32), as XLA:CPU's contracted
+    multiply-adds: ``torch.addcmul``, checked once per device to be
+    fused."""
+    if str(c.device) not in _FUSED_DEVICES:
+        _check_fused(c.device)
+    return torch.addcmul(c, a, b)
 
 
 def _roll_prev(x: torch.Tensor, dim: int) -> torch.Tensor:

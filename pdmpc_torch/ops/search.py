@@ -1,14 +1,22 @@
 """Batched trim-lattice trajectory search (optimal path) — the optimizer.
 
-Torch twin of pdmpc_tpu/ops/search.py's ``plan_trajectory`` for the road
-(non-convex) path: the frontier is expanded layer by layer over the
-horizon; every (beam node x successor trim) candidate is cost-evaluated and
-collision-masked at once, then the best ``beam_width`` candidates survive.
-Every function takes a leading vehicle dim V, so one call plans a whole
-planning chunk and each search layer launches each collision kernel once.
+Torch twin of pdmpc_tpu/ops/search.py's ``plan_trajectory``: the frontier
+is expanded layer by layer over the horizon; every (beam node x successor
+trim) candidate is cost-evaluated and collision-masked at once, then the
+best ``beam_width`` candidates survive. Every function takes a leading
+vehicle dim V, so one call plans a whole planning chunk and each search
+layer launches each collision kernel once.
 
 The collision checks go only through ``ops.collision``'s wrappers: the
-CUDA kernels on the card, their plain versions on the CPU.
+CUDA kernels on the card, their plain versions on the CPU. Obstacles are
+checked by outline crossing (road scenarios, ``non_convex``) or by SAT
+(convex path); the lanelet boundary, where there is one, by crossing.
+
+Multiply-adds that XLA:CPU contracts in the reference (the child pose
+``fma(c, dx, -(s * dy)) + x`` and ``fma(s, dx, c * dy) + y``, the same
+transform of the candidate areas, and the step cost ``fma(dy, dy,
+dx * dx)``) are fused here too, so poses and costs equal the reference's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -23,9 +31,14 @@ from pdmpc_torch.ops.collision import (
     SegmentsPre,
     boundary_hits,
     outline_hits,
+    precompute_obstacles,
     precompute_outline,
     precompute_segments,
+    sat_axes,
+    sat_hits,
+    sat_project,
 )
+from pdmpc_torch.ops.geometry import fma
 from pdmpc_torch.scenarios.scenario import VO
 
 
@@ -83,6 +96,35 @@ def candidate_outline_collisions(man_polys, obs_polys, obs_mask):
     return outline_hits(*_vertex_major(man_polys), pre)[0]
 
 
+def _sat_separates_batch(man_polys, obs_polys):
+    """[...] True where convex polygons man_polys [..., VA, 2] and
+    obs_polys [..., VB, 2] (broadcastable batch dims) are separated by an
+    edge normal of either (intersect_sat.m), in the XLA form of
+    ``ops.collision`` (normalized axes, fused projections)."""
+
+    def separated_on(axes, a, b):
+        ax, ay = axes[0][..., :, None], axes[1][..., :, None]
+        pa = sat_project(ax, ay, a[..., None, :, 0], a[..., None, :, 1])
+        pb = sat_project(ax, ay, b[..., None, :, 0], b[..., None, :, 1])
+        d1 = pa.amin(dim=-1) - pb.amax(dim=-1)
+        d2 = pb.amin(dim=-1) - pa.amax(dim=-1)
+        return ((d1 > 0) | (d2 > 0)).any(dim=-1)
+
+    man_axes = sat_axes(man_polys[..., 0], man_polys[..., 1], -1)
+    obs_axes = sat_axes(obs_polys[..., 0], obs_polys[..., 1], -1)
+    return (separated_on(man_axes, man_polys, obs_polys)
+            | separated_on(obs_axes, man_polys, obs_polys))
+
+
+def candidate_collisions(man_polys, obs_polys, obs_mask):
+    """[C] True where a convex candidate [C, VA, 2] overlaps an active
+    convex obstacle ([n_obs, VB, 2], mask [n_obs]) — the reference-layout
+    entry of the SAT check (GraphSearch.m:111-196), through the SAT
+    kernel's wrapper."""
+    pre = precompute_obstacles(obs_polys[None], obs_mask[None])
+    return sat_hits(*_vertex_major(man_polys), pre)[0]
+
+
 class PlanResult(NamedTuple):
     trims: torch.Tensor         # [V, Hp] i64 — predicted trims
     poses: torch.Tensor         # [V, Hp, 3] f32 — predicted poses
@@ -115,12 +157,13 @@ def _candidate_polys(table, trim, pose, c, s):
     in the kernels' vertex-major layout [V, VA, B*n].
 
     table [n, n, VA, 2]; trim [V, B]; pose [V, B, 3]; c, s [V, B, 1]. The
-    transform is computed op by op, as the reference's XLA path does.
+    transform is computed op by op, fused as the reference's XLA path is.
     """
     areas = table[trim]                                      # [V,B,n,VA,2]
     c4, s4 = c[..., None], s[..., None]
-    ax = c4 * areas[..., 0] - s4 * areas[..., 1] + pose[..., 0, None, None]
-    ay = s4 * areas[..., 0] + c4 * areas[..., 1] + pose[..., 1, None, None]
+    ax = (fma(c4, areas[..., 0], -(s4 * areas[..., 1]))
+          + pose[..., 0, None, None])
+    ay = fma(s4, areas[..., 0], c4 * areas[..., 1]) + pose[..., 1, None, None]
     v, _, _, va = ax.shape
     return (ax.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous(),
             ay.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous())
@@ -138,21 +181,18 @@ def plan_trajectory(
     boundary_segments: torch.Tensor | None = None,   # [V, S, 2, 2]
     boundary_mask: torch.Tensor | None = None,       # [V, S]
     segments_pre: SegmentsPre | None = None,         # precomputed bundle
-    non_convex: bool = True,
+    non_convex: bool = False,
 ) -> PlanResult:
     """Plan V vehicles' Hp-step trajectories through the trim lattice.
 
-    Reference: pdmpc_tpu/ops/search.py plan_trajectory (:286-655). Road
-    scenarios check obstacle outlines by segment crossing
-    (``non_convex``, OptimizerInterface.m:36-46) and, when boundary
-    segments are given, every candidate's swept area without offset (the
-    larger-offset area at the last step) against the lanelet boundary
-    (GraphSearch.m:166-174).
+    Reference: pdmpc_tpu/ops/search.py plan_trajectory (:286-655).
+    Obstacles are checked by SAT (convex areas, the circle scenario) or,
+    with ``non_convex``, by outline crossing (road scenarios,
+    OptimizerInterface.m:36-46); ``mpa`` must carry the matching area
+    family. When boundary segments are given, every candidate's swept area
+    without offset (the larger-offset area at the last step) is checked
+    against the lanelet boundary too (GraphSearch.m:166-174).
     """
-    if not non_convex:
-        raise NotImplementedError(
-            "the convex (SAT) obstacle path is not ported yet"
-        )
     n = mpa.n_trims
     hp = mpa.Hp
     v = x0.shape[0]
@@ -161,8 +201,10 @@ def plan_trajectory(
 
     # candidate-independent obstacle geometry, once per planning pass for
     # all Hp layers: [Hp, V, NO_pad, VO] so each layer's slice is contiguous
-    obs_pre = precompute_outline(obstacles.polys.permute(2, 0, 1, 3, 4),
-                                 obstacles.mask.permute(2, 0, 1))
+    precompute, hits = ((precompute_outline, outline_hits) if non_convex
+                        else (precompute_obstacles, sat_hits))
+    obs_pre = precompute(obstacles.polys.permute(2, 0, 1, 3, 4),
+                         obstacles.mask.permute(2, 0, 1))
     if segments_pre is None and boundary_segments is not None:
         segments_pre = precompute_segments(boundary_segments, boundary_mask)
 
@@ -189,21 +231,21 @@ def plan_trajectory(
         s = torch.sin(pose[..., 2])[..., None]
         mdx = mpa.dx[trim]
         mdy = mpa.dy[trim]
-        child_x = c * mdx - s * mdy + pose[..., 0:1]
-        child_y = s * mdx + c * mdy + pose[..., 1:2]
+        child_x = fma(c, mdx, -(s * mdy)) + pose[..., 0:1]
+        child_y = fma(s, mdx, c * mdy) + pose[..., 1:2]
         child_yaw = pose[..., 2:3] + mpa.dyaw[trim]
         child_pos = torch.stack([child_x, child_y], dim=-1)   # [V, B, n, 2]
 
         # --- costs (expand_node.m:61-73) ---------------------------------
         diff = child_pos - ref_points[:, k, None, None, :]
-        g_child = g[..., None] + (diff[..., 0] * diff[..., 0]
-                                  + diff[..., 1] * diff[..., 1])
+        g_child = g[..., None] + fma(diff[..., 1], diff[..., 1],
+                                     diff[..., 0] * diff[..., 0])
         h_child = _cost_to_go(child_pos, ref_points, v_ref, k, dt)
 
         # --- collision mask (eval_edge_exact capability) ------------------
         cx, cy = _candidate_polys(mpa.area, trim, pose, c, s)
         obs_k = type(obs_pre)(*(x[k] for x in obs_pre))
-        collide = outline_hits(cx, cy, obs_k).reshape(v, b_in, n)
+        collide = hits(cx, cy, obs_k).reshape(v, b_in, n)
         if segments_pre is not None:
             # boundary areas: without offset; larger offset at final step
             table = (mpa.area_large_offset if k == hp - 1
@@ -268,8 +310,8 @@ def plan_trajectory(
     areas = mpa.area[parent_trims, trims_path]                # [V,Hp,VA,2]
     c = torch.cos(parent_poses[..., 2])[..., None]
     s = torch.sin(parent_poses[..., 2])[..., None]
-    sx = c * areas[..., 0] - s * areas[..., 1] + parent_poses[..., 0:1]
-    sy = s * areas[..., 0] + c * areas[..., 1] + parent_poses[..., 1:2]
+    sx = fma(c, areas[..., 0], -(s * areas[..., 1])) + parent_poses[..., 0:1]
+    sy = fma(s, areas[..., 0], c * areas[..., 1]) + parent_poses[..., 1:2]
     return PlanResult(
         trims=trims_path,
         poses=poses_path,

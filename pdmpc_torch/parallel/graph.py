@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from pdmpc_torch.ops.geometry import fma
+
 
 def kahn_levels(directed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Computation level (1-based) of each vehicle from a sequential DAG.
@@ -47,7 +49,8 @@ def distance_weights(directed: torch.Tensor, positions: torch.Tensor,
     """weight = 1 - d / d_max with d_max = 2 * v_max * dt * Hp.
     Reference: DistanceWeigher.m."""
     diff = positions[:, None, :] - positions[None, :, :]
-    d = torch.sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+    # XLA:CPU's norm: sqrt(fma(dy, dy, dx * dx))
+    d = torch.sqrt(fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))
     max_distance = 2.0 * max_mpa_speed * dt * hp
     w = 1.0 - d / max_distance
     return torch.where(directed.bool(), w, torch.zeros_like(w))

@@ -1,20 +1,24 @@
 """Where a control step's time goes on the card.
 
-    python -m pdmpc_torch.profile_step
+    python -m pdmpc_torch.profile_step [--scenario commonroad|circle]
+                                       [--amount N]
 
-Builds the default 20-vehicle CommonRoad configuration (beam 512) on CUDA,
-runs WARMUP steps, times TIMED steps with the host clock (each ending in
-``torch.cuda.synchronize()``), then traces PROFILED more steps with
-``torch.profiler``. Prints the device operations that took the most device
-time and, as the last line, one JSON object: the card's name and power
-limit, the median step time, the device time of a step (kernels, copies
-and fills on the card) and of the two collision kernels, the idle share
+Builds the default configuration of the scenario (CommonRoad: 20 vehicles
+by default, outline and boundary kernels; circle: 10 vehicles by default,
+the SAT kernel; beam 512, Hp 6) on CUDA, runs WARMUP steps, times TIMED
+steps with the host clock (each ending in ``torch.cuda.synchronize()``),
+then traces PROFILED more steps with ``torch.profiler``. Prints the device
+operations that took the most device time and, as the last line, one JSON
+object: the card's name and power limit, the median step time, the device
+time of a step (kernels, copies and fills on the card) and of the
+collision kernels, the idle share
 (one minus device time over the untraced median step time) and the
 launches, copies and stream synchronisations per step.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -25,7 +29,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pdmpc_torch import resolve_device
-from pdmpc_torch.config import Config
+from pdmpc_torch.config import Config, ScenarioType
 from pdmpc_torch.controller import initial_state, make_prioritized_step
 from pdmpc_torch.experiment import create_scenario
 from pdmpc_torch.models.mpa import build_mpa
@@ -34,14 +38,24 @@ WARMUP, TIMED, PROFILED = 3, 8, 4
 TOP = 15
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--scenario", default="commonroad",
+                        choices=[t.value for t in ScenarioType
+                                 if t != ScenarioType.mixed])
+    parser.add_argument("--amount", type=int, default=None,
+                        help="vehicles (default: 20 commonroad, 10 circle)")
+    args = parser.parse_args(argv)
+    scenario = ScenarioType(args.scenario)
+    amount = args.amount or (10 if scenario == ScenarioType.circle else 20)
     device = resolve_device()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = Config(amount=20, T_end=0.2 * (WARMUP + TIMED + PROFILED))
+    cfg = Config(scenario_type=scenario, amount=amount,
+                 T_end=0.2 * (WARMUP + TIMED + PROFILED))
     cfg = cfg.validate()
     mpa = build_mpa(cfg)
     mpa_t = mpa.to_tensors_for(cfg, device)
@@ -91,7 +105,8 @@ def main() -> int:
               f"{device_ms([e]):9.3f}")
     summary = {
         "card": card,
-        "config": {"amount": cfg.amount, "beam_width": cfg.beam_width,
+        "config": {"scenario": cfg.scenario_type.value,
+                   "amount": cfg.amount, "beam_width": cfg.beam_width,
                    "Hp": cfg.Hp},
         "step_ms_median": median_ms,
         "step_ms_traced": traced_ms,

@@ -12,11 +12,19 @@
   box; the masks are compared and every disagreement is counted. On the
   inputs below there is none, so the test asserts equality; a
   disagreement would show as a failure with its count, not be hidden.
+- The SAT check (convex path): ``sat_hits_plain`` and the
+  reference-layout ``candidate_collisions`` are bit-equal to the XLA
+  ``candidate_collisions`` on convex lattice inputs with exact touches,
+  and equal to ``candidate_collisions_pallas`` (interpret mode, axes not
+  normalized) on random convex polygons, which do not touch. The SAT
+  bundle's vertices and mask equal the Pallas bundle's; its normalized
+  axes and extents equal an exact float64 evaluation of the XLA form.
 
 Inputs: maneuver areas of the real MPA on the trim lattice (candidates
 of one beam node share their start-rectangle edges exactly, and some
-obstacles ARE candidate polygons), random polygons, and polygons padded
-to 16 vertices by repeating the last one (degenerate edges).
+obstacles ARE candidate polygons or share one candidate edge), random
+polygons, and polygons padded to 16 vertices by repeating the last one
+(degenerate edges, zero SAT axes).
 """
 
 import jax.numpy as jnp
@@ -28,6 +36,7 @@ from pdmpc_torch.ops import collision as tc
 from pdmpc_torch.ops import search as tsearch
 from pdmpc_tpu.ops import pallas_collision as pk
 from pdmpc_tpu.ops import search as jsearch
+from tests.test_torch_numerics import fma_exact
 
 # One intra-op thread per process: the suite runs in several pytest
 # workers at once, and a full torch thread pool in each of them
@@ -191,6 +200,145 @@ def test_predicate_matches_reference():
         jnp.asarray(d), jnp.asarray(a), jnp.asarray(b))
     got = tc.segment_cross_predicate(*(torch.as_tensor(x) for x in (d, a, b)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.fixture(scope="module")
+def convex_lattice():
+    """Convex candidate areas [C, 5, 2] of the circle MPA (straight
+    maneuvers have 4 vertices and a repeat) at a few beam poses, convex
+    obstacles [NO, 16, 2] padded by repeating their last vertex: some ARE
+    candidates, some share exactly one candidate edge (an exact touch),
+    some are random; plus a mask with some obstacles off."""
+    from pdmpc_tpu.config import Config, ScenarioType
+    from pdmpc_tpu.models.mpa import build_mpa
+
+    cfg = Config(scenario_type=ScenarioType.circle, amount=3,
+                 T_end=2.0).validate()
+    mpa = build_mpa(cfg)
+    rng = np.random.default_rng(2)
+    ii, jj = np.nonzero(mpa.adjacency)
+    base = mpa.area_conv[ii, jj]                       # [E, 5, 2] f64
+    cands = []
+    for x, y, yaw in ((1.0, 1.0, 0.0), (1.3, 1.0, 0.0), (1.1, 1.35, 1.2),
+                      (3.0, 2.5, 2.0), (4.0, 0.5, 0.7)):
+        c, s = np.cos(yaw), np.sin(yaw)
+        cands.append(np.stack([c * base[..., 0] - s * base[..., 1] + x,
+                               s * base[..., 0] + c * base[..., 1] + y], -1))
+    cands = np.concatenate(cands).astype(np.float32)    # [C, 5, 2]
+    c = len(cands)
+    obs = [pad16(cands[i]) for i in rng.choice(c // 5, 5, replace=False)]
+    for i in rng.choice(4 * c // 5, 8, replace=False):  # edge-sharing boxes
+        poly = cands[i]
+        k = int(rng.integers(4))
+        a, b = poly[k].astype(np.float64), poly[k + 1].astype(np.float64)
+        normal = np.array([b[1] - a[1], a[0] - b[0]])
+        normal *= 0.3 / max(np.linalg.norm(normal), 1e-9)
+        if np.dot(normal, a - poly.mean(0)) < 0:
+            normal = -normal
+        box = np.array([a, a + normal, b + normal, b], dtype=np.float32)
+        box[0], box[3] = poly[k], poly[k + 1]          # exact shared edge
+        obs.append(pad16(box))
+    for _ in range(8):
+        n_v = rng.integers(3, 9)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+        center = rng.uniform(0.9, 1.6, 2)
+        obs.append(pad16(center + rng.uniform(0.05, 0.2) * np.stack(
+            [np.cos(ang), np.sin(ang)], -1)))
+    obs = np.stack(obs).astype(np.float32)             # [21, 16, 2]
+    obs_mask = rng.random(len(obs)) < 0.6
+    obs_mask[5:8] = True
+    return cands, obs, obs_mask
+
+
+def test_obstacle_bundle(convex_lattice):
+    """Vertices and mask equal pdmpc_tpu's bundle field for field; the
+    normalized axes and extents (the Pallas bundle's are not normalized)
+    equal an exact float64 evaluation of the XLA form."""
+    _, obs, obs_mask = convex_lattice
+    polys = np.stack([obs, obs[::-1]])                 # leading batch dim
+    mask = np.stack([obs_mask, ~obs_mask])
+    want = pk.precompute_obstacles(jnp.asarray(polys), jnp.asarray(mask))
+    got = tc.precompute_obstacles(torch.as_tensor(polys),
+                                  torch.as_tensor(mask))
+    for f in ("ox", "oy", "mask"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    ox, oy = np.asarray(want.ox), np.asarray(want.oy)
+    ax, ay = np.asarray(want.oax), np.asarray(want.oay)  # unnormalized
+    norm = np.maximum(np.sqrt(fma_exact(ay, ay, ax * ax).astype(np.float64))
+                      .astype(np.float32), np.float32(1e-9))
+    nax, nay = ax / norm, ay / norm
+    np.testing.assert_array_equal(got.oax.numpy(), nax)
+    np.testing.assert_array_equal(got.oay.numpy(), nay)
+    proj = fma_exact(nay[..., None], oy[..., None, :],
+                 nax[..., None] * ox[..., None, :])
+    np.testing.assert_array_equal(got.omn.numpy(), proj.min(-1))
+    np.testing.assert_array_equal(got.omx.numpy(), proj.max(-1))
+
+
+def test_sat_separates_batch_matches_reference(convex_lattice):
+    cands, obs, _ = convex_lattice
+    a = cands[:, None]                                 # [C, 1, 5, 2]
+    b = obs[None]                                      # [1, NO, 16, 2]
+    want = np.asarray(jsearch._sat_separates_batch(jnp.asarray(a),
+                                                   jnp.asarray(b)))
+    got = tsearch._sat_separates_batch(torch.as_tensor(a),
+                                       torch.as_tensor(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size
+
+
+@pytest.mark.parametrize("masked", ["some", "none", "all"])
+def test_sat_plain_bit_equal_to_xla(convex_lattice, masked):
+    cands, obs, obs_mask = convex_lattice
+    mask = {"some": obs_mask, "none": np.zeros_like(obs_mask),
+            "all": np.ones_like(obs_mask)}[masked]
+    xla = np.asarray(jsearch.candidate_collisions(
+        jnp.asarray(cands), jnp.asarray(obs), jnp.asarray(mask)))
+    pre = tc.precompute_obstacles(torch.as_tensor(obs)[None],
+                                  torch.as_tensor(mask)[None])
+    plain = tc.sat_hits_plain(*vertex_major(cands), pre)[0].numpy()
+    np.testing.assert_array_equal(plain, xla)
+    # the CPU wrapper is the plain version, and the reference-layout entry
+    # goes through it
+    np.testing.assert_array_equal(
+        tc.sat_hits(*vertex_major(cands), pre)[0].numpy(), plain)
+    np.testing.assert_array_equal(tsearch.candidate_collisions(
+        torch.as_tensor(cands), torch.as_tensor(obs),
+        torch.as_tensor(mask)).numpy(), plain)
+    if masked == "none":
+        assert not plain.any()
+    else:
+        assert 0 < plain.sum() < len(plain)            # non-trivial input
+
+
+def rand_convex(rng, n, v, scale=1.0):
+    """Random convex polygons as tests/test_pallas_collision.py draws
+    them: sorted angles on a circle."""
+    centers = rng.uniform(-3, 3, size=(n, 1, 2))
+    ang = np.sort(rng.uniform(0, 2 * np.pi, size=(n, v)), axis=1)
+    r = rng.uniform(0.2, 0.6, size=(n, 1)) * scale
+    return (centers + np.stack([r * np.cos(ang), r * np.sin(ang)], axis=-1)
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("va", [5, 16])
+def test_sat_plain_matches_pallas_on_random_convex(va):
+    """The Pallas kernel (interpret mode) drops axis normalization; on
+    random convex polygons, which do not touch, both forms agree."""
+    rng = np.random.default_rng(64 + va)
+    man = rand_convex(rng, 256, va)
+    obs = rand_convex(rng, 11, 16, 1.5)
+    mask = rng.random(11) < 0.7
+    pallas = np.asarray(pk.candidate_collisions_pallas(
+        jnp.asarray(man), jnp.asarray(obs), jnp.asarray(mask),
+        interpret=True))
+    pre = tc.precompute_obstacles(torch.as_tensor(obs)[None],
+                                  torch.as_tensor(mask)[None])
+    plain = tc.sat_hits_plain(*vertex_major(man), pre)[0].numpy()
+    disagree = int((pallas != plain).sum())
+    assert disagree == 0, f"{disagree} candidates differ from the Pallas form"
+    assert 0 < plain.sum() < len(plain)
 
 
 def test_wrappers_check_inputs(lattice):

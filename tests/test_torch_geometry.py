@@ -212,3 +212,43 @@ def test_path_sampling(road_inputs):
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     close(tgeo.path_cumlen(tensor(r["paths"])),
           jax.vmap(jgeo.path_cumlen)(r["paths"]))
+
+
+def test_path_sampling_past_the_end_of_two_point_paths():
+    """The circle scenario's reference paths are two-point segments
+    through the center; by T_end the vehicles run past their end, and
+    projection and sampling take the non-loop branch there."""
+    from pdmpc_tpu.config import Config, ScenarioType
+    from pdmpc_tpu.experiment import create_scenario
+    from pdmpc_tpu.models.mpa import build_mpa
+
+    cfg = Config(scenario_type=ScenarioType.circle, amount=5,
+                 T_end=8.0).validate()
+    sc_t = create_scenario(cfg, build_mpa(cfg)).to_tensors()
+    paths = np.asarray(sc_t.reference_paths)
+    cumlen = np.asarray(sc_t.path_cumlen)
+    is_loop = np.asarray(sc_t.is_loop)
+    assert paths.shape[1] == 2 and not is_loop.any()
+    rng = np.random.default_rng(7)
+    total = cumlen[:, -1:]
+    # before the start, along the path, at its end and well past it
+    arcs = (np.concatenate([rng.uniform(-0.2, 1.0, size=(5, 4)),
+                            np.ones((5, 1)),
+                            rng.uniform(1.0, 1.6, size=(5, 5))], axis=1)
+            * total).astype(np.float32)
+    want_p, want_i = jax.vmap(
+        lambda p, a, c, l: jgeo.sample_path_at_arclength(
+            p, a, c, l, return_indices=True))(paths, arcs, cumlen, is_loop)
+    got_p, got_i = tgeo.sample_path_at_arclength(
+        tensor(paths), tensor(arcs), tensor(cumlen), tensor(is_loop))
+    close(got_p, want_p)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # positions beyond the end of the path project onto its last point
+    pts = (paths[:, -1] + (paths[:, -1] - paths[:, 0]) * 0.3
+           + rng.normal(0, 0.05, size=(5, 2))).astype(np.float32)
+    want = jax.vmap(jgeo.project_to_polyline)(pts, paths, cumlen)
+    got = tgeo.project_to_polyline(tensor(pts), tensor(paths),
+                                   tensor(cumlen))
+    close(got[0], want[0])
+    close(got[1], want[1])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))

@@ -74,9 +74,10 @@ def test_graph_algebra(n, density, seed):
             np.testing.assert_array_equal(sched_t.numpy(),
                                           np.asarray(sched_j))
 
-    # distance weights are floats: within rtol 1e-6, because XLA:CPU
-    # computes the norm as fma(dy, dy, dx * dx) and the port rounds dy * dy
-    # (an ulp of the distance); which pairs are edges is exact
+    # distance weights are floats: within rtol 1e-6. Both compute the norm
+    # as sqrt(fma(dy, dy, dx * dx)), but XLA:CPU's vectorized f32 square
+    # root is one ulp above the rounded one for some 0.7% of inputs (an
+    # ulp of the distance); which pairs are edges is exact
     pos = rng.uniform(0, 4, size=(n, 2)).astype(np.float32)
     w_t = tg.distance_weights(t(directed), t(pos), t(np.float32(0.8)), 0.2,
                               6).numpy()

@@ -43,11 +43,16 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
         run_experiment(Config(amount=3, T_end=0.2, beam_width=8))
 
 
-def test_unported_config_raises():
-    from pdmpc_torch import Config, PriorityStrategies
+@pytest.mark.parametrize("what", ["coloring", "mixed"])
+def test_unported_config_raises(what):
+    from pdmpc_torch import Config, PriorityStrategies, ScenarioType
     from pdmpc_torch.experiment import run_experiment
 
-    with pytest.raises(NotImplementedError, match="constant_priority"):
-        run_experiment(Config(amount=3, T_end=0.2, beam_width=8,
-                              priority=PriorityStrategies.coloring_priority),
+    kw, match = {
+        "coloring": (dict(priority=PriorityStrategies.coloring_priority),
+                     "constant_priority"),
+        "mixed": (dict(scenario_type=ScenarioType.mixed), "'mixed'"),
+    }[what]
+    with pytest.raises(NotImplementedError, match=match):
+        run_experiment(Config(amount=3, T_end=0.2, beam_width=8, **kw),
                        device="cpu")
