@@ -6,15 +6,20 @@
 Phases, any failure exits non-zero:
 1. identify the card, build the CUDA kernels from pdmpc_torch/csrc/;
 2. hold each kernel against its plain PyTorch version (exact mask
-   equality) and time both with CUDA events: the outline and boundary
-   kernels at the road path's shapes, the SAT kernel at the circle path's;
+   equality) and time both with CUDA events (device time: calls queued
+   behind a sleep kernel; also the time a call with its host part): the
+   outline and boundary kernels' (cx, cy) form on random polygons with
+   exact touches at the road path's widths, all candidates live (as the
+   kernels' earlier designs were timed) and with a live mask at the road
+   MPA's 37.5%; the SAT kernel at the circle path's shapes;
 3. road path — run_experiment on the default 20-vehicle CommonRoad
    configuration (beam 512, 20 steps) — with every kernel's launch counter
    zeroed just before and read just after: the outline and boundary
    kernels must launch, the SAT kernel must not; the run must be
    collision-free, moving and mostly fallback-free;
 4. road golden gate: the beam-64 run against tests/expected_results/
-   commonroad_20veh.npz (same fallback pattern, total cost within 1%);
+   commonroad_20veh.npz (same fallback pattern, total cost within 1%, and
+   an exact match: trims and levels equal, poses within 1e-4);
 5. convex path — run_experiment on the 10-vehicle circle (beam 512, Hp 6,
    40 steps, the largest point of the reference's circle sweep), counters
    zeroed again: the SAT kernel must launch and the road kernels must not;
@@ -23,11 +28,17 @@ Phases, any failure exits non-zero:
    golden, the same gate;
 7. plan level: one recorded planning chunk of each path planned twice,
    with the kernels and with their plain versions swapped in; the trims,
-   costs and poses must be equal.
+   costs and poses must be equal;
+8. path shapes: every search layer's lattice-form call of the outline
+   and boundary kernels in phase 7's road plan, held bit for bit against
+   its plain version on the same inputs and timed beside it.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
-JSON.
+JSON: per kernel the keys of the port's contract (phase 2's all-live
+numbers, launches from phases 3 and 5) and, for the crossing kernels,
+``live_mask``, ``path`` (phase 8, per layer and per plan)
+and ``launches_per_step``.
 """
 
 from __future__ import annotations
@@ -62,6 +73,12 @@ OPS_PER_PAIR = 25
 # two comparisons; a candidate's axes cost two differences, a multiply, a
 # fused multiply-add, a square root, a max and two divisions each
 OPS_PER_PROJECTION, OPS_PER_AXIS_TEST, OPS_PER_AXIS = 4, 4, 8
+# share of live candidates in phase 2's masked run: the road MPA allows
+# 37.5% of the 12 x 12 transitions in layers 1 to 5
+LIVE_SHARE = 0.375
+# sleep-kernel cycles a second (H100 SXM boost clock, 1.98 GHz): enough
+# to cover the host's enqueue time in ``device_ms``
+SLEEP_CYCLES_PER_S = 2.0e9
 
 
 def card_line() -> str:
@@ -161,7 +178,9 @@ def sat_inputs(torch, dev):
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
-    """Median time of ``fn`` in ms over ``reps`` CUDA-event-timed calls."""
+    """Median time of ``fn`` in ms over ``reps`` CUDA-event-timed calls,
+    each call's host time included (how the kernels' earlier designs were
+    timed)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -176,70 +195,142 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def kernel_row(torch, name, fn, plain, cx, cy, pre, ops, in_bytes, src_line):
-    """Hold ``fn`` against ``plain`` (exact masks), time both, and return
-    the kernel's JSON row; ``ops(want)`` counts the least operations these
-    inputs need."""
-    got = fn(cx, cy, pre)
+def device_ms(torch, fn, reps=30, warmup=3):
+    """Device time of one call of ``fn`` in ms: ``reps`` calls queued
+    behind a sleep kernel long enough to hide the host's time to enqueue
+    them, so the events see the device's work back to back."""
+    host = 0.0
+    for _ in range(warmup):
+        t0 = time.perf_counter()
+        fn()
+        host = max(host, time.perf_counter() - t0)
     torch.cuda.synchronize()
-    want = plain(cx, cy, pre)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2.0 * reps * host + 2e-3) * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def crossing_bound(live, feasible, n_active, va, in_bytes):
+    """(bound ms, bound_by) of a crossing mask: every (edge, active
+    segment) pair of a live candidate without a hit, one pair of a live
+    candidate with one; ``live``/``feasible`` [V, ...] bool, ``n_active``
+    [V]; bytes: ``in_bytes`` read, one byte a candidate written."""
+    v = live.shape[0]
+    n_live = live.reshape(v, -1).sum(dim=1)
+    free = feasible.reshape(v, -1).sum(dim=1)
+    ops = float(((free * va * n_active + (n_live - free)).sum())
+                * OPS_PER_PAIR)
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bytes_ms = (in_bytes + live.numel()) / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def compare(torch, name, got, want):
+    """Exact equality of two masks; returns the max abs error (0)."""
+    torch.cuda.synchronize()
     mismatches = int((got != want).sum())
-    max_abs_err = float((got.int() - want.int()).abs().max())
-    hit_share = float(want.float().mean())
-    print(f"kernel {name}: {mismatches} mismatches of {want.numel()}, "
-          f"hit share {hit_share:.4f}", flush=True)
+    print(f"kernel {name}: {mismatches} mismatches of {want.numel()}",
+          flush=True)
     if mismatches:
         raise AssertionError(f"{name} disagrees with its plain version")
+    return float((got.int() - want.int()).abs().max())
+
+
+def kernel_row(torch, name, fn, plain, cx, cy, pre, bound, src_line):
+    """Hold ``fn`` against ``plain`` (exact masks) on all-live inputs, time
+    both and return the kernel's JSON row and the plain mask; ``bound(want)``
+    gives the least time these inputs need and what bounds it."""
+    want = plain(cx, cy, pre)
+    max_abs_err = compare(torch, name, fn(cx, cy, pre), want)
+    hit_share = float(want.float().mean())
+    print(f"kernel {name}: hit share {hit_share:.4f}", flush=True)
     if not 0.0 < hit_share < 1.0:
         raise AssertionError(f"{name}: degenerate test input")
-    ms = time_ms(torch, lambda: fn(cx, cy, pre))
-    plain_ms = time_ms(torch, lambda: plain(cx, cy, pre))
-    ops_ms = ops(want) / PEAK_F32_OPS * 1e3
-    bytes_ms = (in_bytes + want.numel()) / PEAK_BYTES * 1e3
-    print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(ops_ms, bytes_ms):.6f} ms", flush=True)
-    return {
+    bound_ms, bound_by = bound(want)
+    row = {
         "name": name, "route": "cuda",
         "source": "pdmpc_torch/csrc/collision.cu",
         "replaces": src_line,
         "launches": None, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        "ms": device_ms(torch, lambda: fn(cx, cy, pre)),
+        "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre), reps=10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "event_ms": time_ms(torch, lambda: fn(cx, cy, pre)),
     }
+    print(f"kernel {name}: {row['ms']:.5f} ms ({row['event_ms']:.5f} ms a "
+          f"call with the host), plain {row['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.6f} ms", flush=True)
+    return row, want
 
 
-def check_kernels(torch, coll, dev):
-    """Phase 2: each kernel against its plain version, exact masks."""
+def live_mask_run(torch, row, fn, plain, cx, cy, pre, n_active, in_bytes):
+    """A crossing kernel's (cx, cy) form with a live mask at the road MPA's
+    share of allowed transitions: held exact, timed, bound over the live
+    candidates."""
+    name = row["name"]
+    gen = torch.Generator(device=cx.device).manual_seed(SEED)
+    live = torch.rand((cx.shape[0], cx.shape[2]), generator=gen,
+                      device=cx.device) < LIVE_SHARE
+    want = plain(cx, cy, pre, live)
+    compare(torch, name + " (live mask)", fn(cx, cy, pre, live), want)
+    bound_ms, _ = crossing_bound(live, want, n_active, cx.shape[1],
+                                 in_bytes + live.numel())
+    row["live_mask"] = {
+        "live_share": float(live.float().mean()),
+        "ms": device_ms(torch, lambda: fn(cx, cy, pre, live)),
+        "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre, live),
+                              reps=10),
+        "bound_ms": bound_ms,
+    }
+    print(f"kernel {name}: live share {row['live_mask']['live_share']:.4f}: "
+          f"{row['live_mask']['ms']:.5f} ms, plain "
+          f"{row['live_mask']['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms",
+          flush=True)
+
+
+def check_kernels(torch, coll, dev, extras=True):
+    """Phase 2: each kernel against its plain version, exact masks, on
+    all-live inputs; with ``extras`` the crossing kernels also with a live
+    mask."""
     cx, cy, obs, obs_mask, segs, seg_mask = kernel_inputs(torch, dev)
     out_pre = coll.precompute_outline(obs, obs_mask)
     seg_pre = coll.precompute_segments(segs, seg_mask)
     rows = []
-    for name, fn, plain, pre, n_active, in_bytes, src_line in (
-        ("outline_hits", coll.outline_hits, coll.outline_hits_plain,
-         out_pre, out_pre.edge_ok.sum(dim=(1, 2)),
+    for name, pre, n_active, in_bytes, src_line in (
+        ("outline_hits", out_pre, out_pre.edge_ok.sum(dim=(1, 2)),
          4 * (cx.numel() * 2 + out_pre.ox.numel() * 3),
          "pdmpc_tpu/ops/pallas_collision.py:530"),
-        ("boundary_hits", coll.boundary_hits, coll.boundary_hits_plain,
-         seg_pre, seg_pre.mask.sum(dim=1),
+        ("boundary_hits", seg_pre, seg_pre.mask.sum(dim=1),
          4 * (cx.numel() * 2 + seg_pre.packed.numel() + seg_pre.mask.numel()),
          "pdmpc_tpu/ops/pallas_collision.py:374"),
     ):
-        def ops(want, n_active=n_active):
-            # every pair of a candidate without a hit, one pair of a
-            # candidate with one
-            hits = want.sum(dim=1)
-            return float(((C - hits) * VA * n_active + hits).sum()) \
-                * OPS_PER_PAIR
-        rows.append(kernel_row(torch, name, fn, plain, cx, cy, pre, ops,
-                               in_bytes, src_line))
+        fn, plain = getattr(coll, name), getattr(coll, name + "_plain")
+
+        def bound(want, n_active=n_active, in_bytes=in_bytes):
+            return crossing_bound(torch.ones_like(want), ~want, n_active,
+                                  cx.shape[1], in_bytes)
+
+        row, _ = kernel_row(torch, name, fn, plain, cx, cy, pre, bound,
+                            src_line)
+        if extras:
+            live_mask_run(torch, row, fn, plain, cx, cy, pre, n_active,
+                          in_bytes)
+        rows.append(row)
 
     cx, cy, obs, obs_mask = sat_inputs(torch, dev)
     sat_pre = coll.precompute_obstacles(obs, obs_mask)
     n_active = sat_pre.mask.sum(dim=1)
+    in_bytes = 4 * (cx.numel() * 2 + sat_pre.ox.numel() * 6
+                    + sat_pre.mask.numel())
 
-    def sat_ops(want):
+    def sat_bound(want):
         # each candidate's own axes and extents; then one axis (the
         # cheapest: an obstacle's, VA projections) for every active
         # obstacle of a candidate without a hit, and every axis of one
@@ -249,14 +340,15 @@ def check_kernels(torch, coll, dev):
         separated = VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST
         overlap = (VA_SAT * (VO * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST)
                    + VO * (VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST))
-        return float((own + (C - hits) * n_active * separated
-                      + hits * overlap).sum())
+        ops_ms = float((own + (C - hits) * n_active * separated
+                        + hits * overlap).sum()) / PEAK_F32_OPS * 1e3
+        bytes_ms = (in_bytes + want.numel()) / PEAK_BYTES * 1e3
+        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                       else "bytes")
 
     rows.append(kernel_row(
         torch, "sat_hits", coll.sat_hits, coll.sat_hits_plain, cx, cy,
-        sat_pre, sat_ops,
-        4 * (cx.numel() * 2 + sat_pre.ox.numel() * 6 + sat_pre.mask.numel()),
-        "pdmpc_tpu/ops/pallas_collision.py:234"))
+        sat_pre, sat_bound, "pdmpc_tpu/ops/pallas_collision.py:234")[0])
     return rows
 
 
@@ -299,7 +391,7 @@ def drive(coll, run_experiment, cfg, card, label, launched, dims):
     require the kernels in ``launched`` to launch and the others not to;
     check the run (finite, collision-free, every vehicle moves > 0.3 m,
     fallback share < 0.5) and print its step times. Returns the launch
-    counts."""
+    counts and the number of steps."""
     for name in KERNELS:
         getattr(coll, name).launches = 0
     res = run_experiment(cfg, device="cuda")
@@ -332,12 +424,13 @@ def drive(coll, run_experiment, cfg, card, label, launched, dims):
           f"{moved.min():.3f} m, launches per step "
           + ", ".join(f"{k} {v / res.n_steps:.2f}"
                       for k, v in launches.items()), flush=True)
-    return launches
+    return launches, res.n_steps
 
 
 def golden_gate(run_experiment, cfg, name):
-    """The gate bench.py holds the TPU to: same fallback pattern as the CPU
-    golden, total cost within 1%; also says whether the match is exact."""
+    """The gate bench.py holds the TPU to (same fallback pattern as the CPU
+    golden, total cost within 1%), and beyond it an exact match: trims
+    and levels equal, poses within 1e-4."""
     gold = run_experiment(cfg, device="cuda")
     with np.load(os.path.join(GOLDEN_DIR, name + ".npz")) as g:
         ref = {k: g[k] for k in g.files}
@@ -353,13 +446,24 @@ def golden_gate(run_experiment, cfg, name):
              and (gold.infos.levels == ref["levels"]).all())
     print(f"golden gate {name}: fallbacks match, total cost rel diff "
           f"{rel:.3e}, exact match {exact}", flush=True)
+    if not exact:
+        raise AssertionError(f"{name}: trims, levels or poses differ from "
+                             f"the golden")
+
+
+# search-module names of the collision checks that have a plain twin in
+# ops.collision, and the crossing kernels' lattice forms among them
+SWAPPED = KERNELS + ("outline_hits_lattice", "boundary_hits_lattice")
+LATTICE = {"outline_hits_lattice": "outline_hits",
+           "boundary_hits_lattice": "boundary_hits"}
 
 
 def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
     """Phase 7: record the planning chunks of a short run, take the one
     with the most active obstacles, and plan it again twice: with the
     kernels, and with their plain versions swapped into the search. The
-    plans must be equal."""
+    plans must be equal. Returns the lattice-form calls of the plan with
+    the kernels: (kernel name, layer, lattice, live, bundle)."""
     import pdmpc_torch.controller as ctl
     from pdmpc_torch.ops import search
 
@@ -377,9 +481,26 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
     args, kwargs = max(calls, key=lambda c: int(c[0][5].mask.sum()))
     if not args[5].mask.any():
         raise AssertionError(f"{label}: no chunk planned against obstacles")
-    with_kernels = search.plan_trajectory(*args, **kwargs)
-    swapped = {name: getattr(search, name) for name in KERNELS}
-    for name in KERNELS:
+
+    lattice_calls = []
+    swapped = {name: getattr(search, name) for name in SWAPPED}
+
+    def recorder(name, fn):
+        def call(lat, live, pre):
+            layer = sum(c[0] == LATTICE[name] for c in lattice_calls)
+            lattice_calls.append((LATTICE[name], layer, lat, live.clone(),
+                                  pre))
+            return fn(lat, live, pre)
+        return call
+
+    for name in LATTICE:
+        setattr(search, name, recorder(name, swapped[name]))
+    try:
+        with_kernels = search.plan_trajectory(*args, **kwargs)
+    finally:
+        for name in LATTICE:
+            setattr(search, name, swapped[name])
+    for name in SWAPPED:
         setattr(search, name, getattr(coll, name + "_plain"))
     try:
         launches = {name: getattr(coll, name).launches for name in KERNELS}
@@ -398,6 +519,61 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
     print(f"plan level {label}: chunk of {args[1].shape[0]} vehicles, "
           f"{int(args[5].mask.sum())} active obstacle slots: trims, costs "
           f"and poses equal with kernels and plain versions", flush=True)
+    return lattice_calls
+
+
+def lattice_bytes(lat, live, pre):
+    """Bytes a lattice-form call reads: table, trims, poses, c and s, the
+    live mask and the bundle."""
+    v, b = lat.trim.shape
+    return (lat.table.numel() * 4 + v * b * (8 + 3 * 4 + 2 * 4)
+            + live.numel() + sum(t.numel() * t.element_size() for t in pre))
+
+
+def path_shapes(torch, coll, lattice_calls, rows):
+    """Phase 8: every lattice-form call of the road chunk's plan, held bit
+    for bit against its plain version on the same inputs and timed beside
+    it, bound over the live candidates (for the boundary kernel: those
+    the outline test left live). Adds each kernel's per-layer and per-plan
+    numbers to its row."""
+    if not {c[0] for c in lattice_calls} >= {"outline_hits",
+                                              "boundary_hits"}:
+        raise AssertionError("the road chunk made no lattice-form call of "
+                             "both crossing kernels")
+    for name in ("outline_hits", "boundary_hits"):
+        fn = getattr(coll, name + "_lattice")
+        plain = getattr(coll, name + "_lattice_plain")
+        n_active = None
+        layers = []
+        for _, layer, lat, live, pre in (c for c in lattice_calls
+                                         if c[0] == name):
+            want = plain(lat, live, pre)
+            compare(torch, f"{name} lattice layer {layer}",
+                    fn(lat, live, pre), want)
+            n_active = (pre.edge_ok.sum(dim=(1, 2)) if name == "outline_hits"
+                        else pre.mask.sum(dim=1))
+            bound_ms, bound_by = crossing_bound(
+                live, want, n_active, lat.table.shape[2],
+                lattice_bytes(lat, live, pre))
+            layers.append({
+                "layer": layer, "candidates": live.numel(),
+                "live": int(live.sum()), "feasible": int(want.sum()),
+                "active_segments": n_active.tolist(),
+                "ms": device_ms(torch, lambda: fn(lat, live, pre)),
+                "plain_ms": device_ms(torch, lambda: plain(lat, live, pre),
+                                      reps=10),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+        path = {"layers": layers}
+        for key in ("ms", "plain_ms", "bound_ms"):
+            path[key + "_per_plan"] = sum(x[key] for x in layers)
+        rows[name]["path"] = path
+        print(f"path shapes {name}: {len(layers)} layers, "
+              f"{path['ms_per_plan']:.5f} ms a plan, plain "
+              f"{path['plain_ms_per_plan']:.4f} ms, bound "
+              f"{path['bound_ms_per_plan']:.6f} ms; by layer "
+              + ", ".join(f"{x['live']}/{x['candidates']} live "
+                          f"{x['ms']:.5f} ms" for x in layers), flush=True)
 
 
 def main() -> int:
@@ -430,28 +606,35 @@ def main() -> int:
     rows = {row["name"]: row for row in check_kernels(torch, coll, "cuda")}
 
     # ---- 3. road path -----------------------------------------------------
-    road = drive(coll, run_experiment, Config(amount=20, T_end=4.0), card,
-                 "road path", ("outline_hits", "boundary_hits"), dims)
+    road, road_steps = drive(coll, run_experiment,
+                             Config(amount=20, T_end=4.0), card, "road path",
+                             ("outline_hits", "boundary_hits"), dims)
     # ---- 4. road golden gate ----------------------------------------------
     golden_gate(run_experiment, Config(amount=20, T_end=4.0, beam_width=64),
                 "commonroad_20veh")
     # ---- 5. convex path ---------------------------------------------------
-    convex = drive(coll, run_experiment,
-                   Config(scenario_type=circle, amount=10, T_end=8.0), card,
-                   "circle path", ("sat_hits",), dims)
+    convex, circle_steps = drive(
+        coll, run_experiment,
+        Config(scenario_type=circle, amount=10, T_end=8.0), card,
+        "circle path", ("sat_hits",), dims)
     for name in ("outline_hits", "boundary_hits"):
         rows[name]["launches"] = road[name]
+        rows[name]["launches_per_step"] = road[name] / road_steps
     rows["sat_hits"]["launches"] = convex["sat_hits"]
+    rows["sat_hits"]["launches_per_step"] = convex["sat_hits"] / circle_steps
     # ---- 6. convex golden gate --------------------------------------------
     golden_gate(run_experiment,
                 Config(scenario_type=circle, amount=3, T_end=2.0, Hp=10,
                        beam_width=128), "circle_03veh_hp10")
     # ---- 7. plan level: kernels against plain versions --------------------
-    plans_with_plain_versions(torch, coll, run_experiment,
-                              Config(amount=20, T_end=1.0), "road chunk")
+    road_calls = plans_with_plain_versions(
+        torch, coll, run_experiment, Config(amount=20, T_end=1.0),
+        "road chunk")
     plans_with_plain_versions(torch, coll, run_experiment,
                               Config(scenario_type=circle, amount=10,
                                      T_end=3.0), "circle chunk")
+    # ---- 8. the crossing kernels at the road chunk's own shapes ----------
+    path_shapes(torch, coll, road_calls, rows)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

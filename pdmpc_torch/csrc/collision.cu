@@ -6,7 +6,7 @@
 // boundary_hits replaces pdmpc_tpu/ops/pallas_collision.py::_boundary_kernel
 //               (reached through boundary_hits_pre).
 //
-// Both compute, per candidate polygon, whether any of its edges crosses any
+// Both decide, per candidate polygon, whether any of its edges crosses any
 // active segment (an obstacle edge or a lanelet-boundary segment), with the
 // tolerant division-free predicate of pdmpc_tpu/ops/search.py
 // (_segment_cross_predicate, SEG_CROSS_TOL = 1e-4) in its XLA form:
@@ -17,12 +17,28 @@
 // every product is rounded on its own, as in the plain PyTorch versions, so
 // kernel and plain version agree bit for bit.
 //
-// Design: grid (candidate blocks, vehicles); one thread per candidate holds
-// its polygon in registers. The block first compacts its vehicle's active
-// segments (masked obstacles and degenerate padded edges dropped: both can
-// never cross) into shared memory, then every thread scans them and stops
-// at its first hit. The work is bounded by operations (candidate edges x
-// active segments), not by the few hundred KB of inputs.
+// Each has two entry forms that share one scan (hits_kernel):
+// - the (cx, cy) form reads candidate vertices [V, VA, C] from memory;
+// - the lattice form builds search layer candidates in registers: candidate
+//   b * n + j of vehicle v is the area table[trim[v, b], j] placed at the
+//   parent pose with x = fma(c, tx, -(s * ty)) + px and
+//   y = fma(s, tx, c * ty) + py, the rounding of the plain version
+//   (geometry.fma, i.e. torch.addcmul).
+// Given a live mask, a kernel writes live & ~hit (the feasibility mask of
+// the search) and scans no candidate that is not live; without one it
+// writes the hit mask.
+//
+// What bounds them on an H100: operations (candidate edges x active
+// segments, ~25 f32 operations a pair), not the few hundred KB of inputs.
+// Design: a resident block (grid sized to the SMs) compacts its vehicle's
+// active segments (masked obstacles and degenerate padded edges dropped:
+// both can never cross) into shared memory once, in index order by warp
+// ballots, then walks candidates with a grid-stride loop. A warp takes one
+// candidate: every lane holds the candidate's polygon in registers, lane l
+// tests staged segments l, l + 32, ... against all its edges, and the warp
+// leaves at its first hit by a vote after each round (every lane runs the
+// same number of rounds). No bounding-box
+// culling: it is not exact inside the tolerance band.
 //
 // sat_hits replaces pdmpc_tpu/ops/pallas_collision.py::_sat_kernel (reached
 // through sat_hits_pre): per candidate convex polygon, whether it overlaps
@@ -33,26 +49,35 @@
 //   projection = fma(ay, y, ax * x),
 //   separated on an axis iff min(pa) - max(pb) > 0 or min(pb) - max(pa) > 0,
 // each multiply-add fused with __fmaf_rn, the square root and the division
-// rounded to nearest (pdmpc_torch/ops/collision.py says why). Same design:
-// the candidate's vertices, normalized axes and own extents in registers;
-// the vehicle's active obstacles (vertices, normalized axes and own-axis
-// extents from the bundle) compacted into shared memory; per obstacle the
-// candidate's axes first, then the obstacle's, leaving at the first
-// separating axis, and the candidate leaves at its first overlap. Zero axes
-// (repeated vertices) project everything to 0 and never separate: skipped.
+// rounded to nearest (pdmpc_torch/ops/collision.py says why). One thread
+// per candidate: its vertices, normalized axes and own extents in
+// registers; the vehicle's active obstacles (vertices, normalized axes and
+// own-axis extents from the bundle) compacted into shared memory; per
+// obstacle the candidate's axes first, then the obstacle's, leaving at the
+// first separating axis, and the candidate leaves at its first overlap.
+// Zero axes (repeated vertices) project everything to 0 and never
+// separate: skipped.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxVa = 8;
+// Lanes a candidate in the crossing scan: one warp. Of 4, 8, 16 and 32
+// lanes, 32 was the fastest for both crossing kernels on the H100, all
+// live and with a live mask (PERF.md, Findings).
+constexpr int kLanes = 32;
+static_assert(kLanes == 32, "the scan gives each candidate one warp");
 constexpr float kTol = 1e-4f;
 constexpr float kOnePlusTol = 1.0001f;
 
-struct Seg {
+struct __align__(16) Seg {
   float b1x, b1y, sx, sy;
 };
 
@@ -68,93 +93,245 @@ __device__ __forceinline__ bool crosses(float rx, float ry, float qpx,
          (b_num * d >= -t_lim) && (fabsf(b_num) <= m_lim);
 }
 
-// Scan the staged segments for candidate `c` of vehicle `v`.
-__device__ __forceinline__ void scan_candidate(
-    const float* __restrict__ cx, const float* __restrict__ cy,
-    uint8_t* __restrict__ out, const Seg* segs, int n_segs, int v, int va,
-    int c_total, int c) {
-  if (c >= c_total) return;
-  float ax[kMaxVa], ay[kMaxVa];
-  const size_t base = (size_t)v * va * c_total + c;
-#pragma unroll
-  for (int i = 0; i < kMaxVa; ++i) {
-    if (i < va) {
-      ax[i] = cx[base + (size_t)i * c_total];
-      ay[i] = cy[base + (size_t)i * c_total];
-    }
-  }
-  bool hit = false;
-  for (int i = 0; i < va && !hit; ++i) {
-    const int j = (i + 1 == va) ? 0 : i + 1;
-    const float rx = ax[j] - ax[i];
-    const float ry = ay[j] - ay[i];
-    for (int e = 0; e < n_segs; ++e) {
-      const Seg s = segs[e];
-      if (crosses(rx, ry, s.b1x - ax[i], s.b1y - ay[i], s.sx, s.sy)) {
-        hit = true;
-        break;
-      }
-    }
-  }
-  out[(size_t)v * c_total + c] = hit ? 1 : 0;
-}
+// ---- where the segments come from ----------------------------------------
 
-__global__ void outline_hits_kernel(const float* __restrict__ cx,
-                                    const float* __restrict__ cy,
-                                    const float* __restrict__ ox,
-                                    const float* __restrict__ oy,
-                                    const int32_t* __restrict__ edge_ok,
-                                    uint8_t* __restrict__ out, int va,
-                                    int c_total, int n_obs, int vo) {
-  extern __shared__ Seg segs[];
-  __shared__ int n_segs;
-  const int v = blockIdx.y;
-  if (threadIdx.x == 0) n_segs = 0;
-  __syncthreads();
-  const int n_edges = n_obs * vo;
-  const size_t obase = (size_t)v * n_edges;
-  for (int e = threadIdx.x; e < n_edges; e += blockDim.x) {
-    if (edge_ok[obase + e] == 0) continue;
+// Obstacle outlines [V, NO, VO]: edge k -> k+1 (cyclic) where edge_ok.
+struct OutlineSegs {
+  const float* ox;
+  const float* oy;
+  const int32_t* edge_ok;
+  int n_obs, vo;
+
+  __host__ __device__ int size() const { return n_obs * vo; }
+  __device__ bool get(int v, int e, Seg& s) const {
+    const size_t base = (size_t)v * n_obs * vo;
+    if (edge_ok[base + e] == 0) return false;
     const int o = e / vo;
     const int k = e - o * vo;
     const int k1 = (k + 1 == vo) ? 0 : k + 1;
-    const float b1x = ox[obase + e], b1y = oy[obase + e];
-    Seg s;
-    s.b1x = b1x;
-    s.b1y = b1y;
-    s.sx = ox[obase + (size_t)o * vo + k1] - b1x;
-    s.sy = oy[obase + (size_t)o * vo + k1] - b1y;
-    segs[atomicAdd(&n_segs, 1)] = s;
+    s.b1x = ox[base + e];
+    s.b1y = oy[base + e];
+    s.sx = ox[base + (size_t)o * vo + k1] - s.b1x;
+    s.sy = oy[base + (size_t)o * vo + k1] - s.b1y;
+    return true;
   }
-  __syncthreads();
-  scan_candidate(cx, cy, out, segs, n_segs, v, va, c_total,
-                 blockIdx.x * blockDim.x + threadIdx.x);
-}
+};
 
-__global__ void boundary_hits_kernel(const float* __restrict__ cx,
-                                     const float* __restrict__ cy,
-                                     const float* __restrict__ packed,
-                                     const int32_t* __restrict__ mask,
-                                     uint8_t* __restrict__ out, int va,
-                                     int c_total, int s_pad) {
-  extern __shared__ Seg segs[];
-  __shared__ int n_segs;
-  const int v = blockIdx.y;
-  if (threadIdx.x == 0) n_segs = 0;
-  __syncthreads();
-  const float* p = packed + (size_t)v * 8 * s_pad;  // rows sx, sy, b1x, b1y
-  for (int e = threadIdx.x; e < s_pad; e += blockDim.x) {
-    if (mask[(size_t)v * s_pad + e] == 0) continue;
-    Seg s;
+// Boundary segments: packed [V, 8, S_pad] rows sx, sy, b1x, b1y, ...;
+// mask [V, S_pad].
+struct BoundarySegs {
+  const float* packed;
+  const int32_t* mask;
+  int s_pad;
+
+  __host__ __device__ int size() const { return s_pad; }
+  __device__ bool get(int v, int e, Seg& s) const {
+    if (mask[(size_t)v * s_pad + e] == 0) return false;
+    const float* p = packed + (size_t)v * 8 * s_pad;
     s.sx = p[e];
     s.sy = p[s_pad + e];
     s.b1x = p[2 * s_pad + e];
     s.b1y = p[3 * s_pad + e];
-    segs[atomicAdd(&n_segs, 1)] = s;
+    return true;
   }
-  __syncthreads();
-  scan_candidate(cx, cy, out, segs, n_segs, v, va, c_total,
-                 blockIdx.x * blockDim.x + threadIdx.x);
+};
+
+// ---- where the candidates come from --------------------------------------
+
+// Vertex-major candidates cx, cy [V, VA, C].
+struct PolyCands {
+  const float* cx;
+  const float* cy;
+  int va, c_total;
+
+  __device__ void get(int v, int c, float* ax, float* ay) const {
+    const size_t base = (size_t)v * va * c_total + c;
+#pragma unroll
+    for (int i = 0; i < kMaxVa; ++i) {
+      if (i < va) {
+        ax[i] = cx[base + (size_t)i * c_total];
+        ay[i] = cy[base + (size_t)i * c_total];
+      }
+    }
+  }
+};
+
+// One search layer's lattice: table [n, n, VA, 2]; trim [V, B] i64, pose
+// [V, B, 3] (last stride 1) and cos, sin [V, B] of the parent yaw, each
+// with its own strides in elements.
+struct LatticeCands {
+  const float* table;
+  const int64_t* trim;
+  const float* pose;
+  const float* cos_yaw;
+  const float* sin_yaw;
+  long long trim_sv, trim_sb, pose_sv, pose_sb, cs_sv, cs_sb;
+  int n, va;
+
+  __device__ void get(int v, int c, float* ax, float* ay) const {
+    const int b = c / n;
+    const int j = c - b * n;
+    const int64_t t = trim[v * trim_sv + b * trim_sb];
+    const float* area = table + ((size_t)t * n + j) * va * 2;
+    const float* p = pose + v * pose_sv + b * pose_sb;
+    const float cv = cos_yaw[v * cs_sv + b * cs_sb];
+    const float sv = sin_yaw[v * cs_sv + b * cs_sb];
+    const float px = p[0], py = p[1];
+#pragma unroll
+    for (int i = 0; i < kMaxVa; ++i) {
+      if (i < va) {
+        const float tx = __ldg(area + 2 * i), ty = __ldg(area + 2 * i + 1);
+        ax[i] = __fadd_rn(__fmaf_rn(cv, tx, -__fmul_rn(sv, ty)), px);
+        ay[i] = __fadd_rn(__fmaf_rn(sv, tx, __fmul_rn(cv, ty)), py);
+      }
+    }
+  }
+};
+
+// ---- the scan --------------------------------------------------------------
+
+// Grid (blocks, V), kThreads threads, dynamic shared memory for
+// segs.size() staged segments. live may be null (every candidate live,
+// out = hit); else out = live & ~hit. live and out may be one buffer.
+template <class Segs, class Cands>
+__global__ void __launch_bounds__(kThreads)
+    hits_kernel(Segs segs, Cands cands, const uint8_t* live, uint8_t* out,
+                int c_total) {
+  extern __shared__ Seg staged[];
+  __shared__ int warp_count[kWarps];
+  const int v = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // stage the vehicle's active segments in index order
+  int n_segs = 0;
+  const int n_edges = segs.size();
+  for (int base = 0; base < n_edges; base += kThreads) {
+    const int e = base + threadIdx.x;
+    Seg s;
+    const bool ok = e < n_edges && segs.get(v, e, s);
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) warp_count[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int cnt = warp_count[w];
+      before += (w < warp) ? cnt : 0;
+      total += cnt;
+    }
+    if (ok) staged[n_segs + before + __popc(m & ((1u << lane) - 1u))] = s;
+    n_segs += total;
+    __syncthreads();
+  }
+
+  // a warp a candidate, grid-stride over candidates
+  constexpr int kGroups = kThreads / kLanes;
+  const int rounds = (n_segs + kLanes - 1) / kLanes;
+  const size_t row = (size_t)v * c_total;
+  for (int c = blockIdx.x * kGroups + warp; c < c_total;
+       c += gridDim.x * kGroups) {
+    if (live != nullptr && live[row + c] == 0) {
+      if (lane == 0) out[row + c] = 0;
+      continue;
+    }
+    float ax[kMaxVa], ay[kMaxVa], rx[kMaxVa], ry[kMaxVa];
+    cands.get(v, c, ax, ay);
+    const int va = cands.va;
+#pragma unroll
+    for (int i = 0; i < kMaxVa; ++i) {
+      if (i < va) {
+        const int i1 = (i + 1) % kMaxVa;
+        const bool wrap = i + 1 >= va;
+        rx[i] = (wrap ? ax[0] : ax[i1]) - ax[i];
+        ry[i] = (wrap ? ay[0] : ay[i1]) - ay[i];
+      }
+    }
+    bool hit = false;
+    for (int r = 0; r < rounds; ++r) {
+      const int e = r * kLanes + lane;
+      bool h = false;
+      if (e < n_segs) {
+        const Seg s = staged[e];
+#pragma unroll
+        for (int i = 0; i < kMaxVa; ++i) {
+          if (i < va) {
+            h |= crosses(rx[i], ry[i], s.b1x - ax[i], s.b1y - ay[i], s.sx,
+                         s.sy);
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, h)) {
+        hit = true;
+        break;
+      }
+    }
+    if (lane == 0) out[row + c] = (live != nullptr) ? !hit : hit;
+  }
+}
+
+int sm_count(int dev) {
+  static int count[16] = {0};
+  if (dev < 0 || dev >= 16) dev = 0;
+  if (count[dev] == 0) {
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return count[dev];
+}
+
+// Blocks of hits_kernel<Segs, Cands> resident on one SM of device `dev` with
+// `smem` bytes of stage each, cached per (device, stage size): a search
+// stages a handful of sizes.
+template <class Segs, class Cands>
+int blocks_per_sm(int dev, size_t smem) {
+  struct Entry {
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int n_cached = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
+  for (int i = 0; i < n_cached; ++i) {
+    if (cache[i].dev == dev && cache[i].smem == smem) return cache[i].blocks;
+  }
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, hits_kernel<Segs, Cands>, kThreads, smem);
+  if (blocks < 1) blocks = 1;
+  if (n_cached < kEntries) cache[n_cached++] = Entry{dev, smem, blocks};
+  return blocks;
+}
+
+// Launch hits_kernel<Segs, Cands> with a grid of the blocks that stay
+// resident on the card at this stage size, split over the V vehicles, or
+// fewer when the candidates need fewer.
+template <class Segs, class Cands>
+int launch(const Segs& segs, const Cands& cands, const uint8_t* live,
+           uint8_t* out, int v, int c_total, void* stream) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const size_t smem = (size_t)segs.size() * sizeof(Seg);
+  constexpr int kGroups = kThreads / kLanes;
+  const int need = (c_total + kGroups - 1) / kGroups;
+  int resident = sm_count(dev) * blocks_per_sm<Segs, Cands>(dev, smem) / v;
+  if (resident < 1) resident = 1;
+  const dim3 grid(need < resident ? need : resident, v);
+  hits_kernel<Segs, Cands><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      segs, cands, live, out, c_total);
+  return (int)cudaGetLastError();
+}
+
+LatticeCands lattice(const float* table, int n, int va, const int64_t* trim,
+                     long long trim_sv, long long trim_sb, const float* pose,
+                     long long pose_sv, long long pose_sb,
+                     const float* cos_yaw, const float* sin_yaw,
+                     long long cs_sv, long long cs_sb) {
+  return LatticeCands{table,   trim,    pose,    cos_yaw, sin_yaw, trim_sv,
+                      trim_sb, pose_sv, pose_sb, cs_sv,   cs_sb,   n,
+                      va};
 }
 
 __device__ __forceinline__ float project(float ax, float ay, float x,
@@ -276,28 +453,58 @@ __global__ void sat_hits_kernel(
 
 extern "C" {
 
-// cx, cy: [V, VA, C] f32; ox, oy: [V, NO, VO] f32; edge_ok: [V, NO, VO] i32;
-// out: [V, C] u8. Returns the cudaError_t of the launch.
+// Common tail of the four crossing entries: live [V, C] u8 or null; out
+// [V, C] u8. Each returns the cudaError_t of the launch.
+
+// cx, cy: [V, VA, C] f32; ox, oy: [V, NO, VO] f32; edge_ok: [V, NO, VO] i32.
 int outline_hits(const float* cx, const float* cy, const float* ox,
-                 const float* oy, const int32_t* edge_ok, uint8_t* out, int v,
-                 int va, int c, int n_obs, int vo, void* stream) {
-  const dim3 grid((c + kThreads - 1) / kThreads, v);
-  const size_t smem = (size_t)n_obs * vo * sizeof(Seg);
-  outline_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      cx, cy, ox, oy, edge_ok, out, va, c, n_obs, vo);
-  return (int)cudaGetLastError();
+                 const float* oy, const int32_t* edge_ok,
+                 const uint8_t* live, uint8_t* out, int v, int va, int c,
+                 int n_obs, int vo, void* stream) {
+  return launch(OutlineSegs{ox, oy, edge_ok, n_obs, vo},
+                PolyCands{cx, cy, va, c}, live, out, v, c, stream);
 }
 
-// cx, cy: [V, VA, C] f32; packed: [V, 8, S_pad] f32; mask: [V, S_pad] i32;
-// out: [V, C] u8. Returns the cudaError_t of the launch.
+// The lattice form: C = B * n candidates built from table [n, n, VA, 2],
+// trim [V, B] i64, pose [V, B, 3] and cos, sin [V, B] (strides in
+// elements); obstacles as above.
+int outline_hits_lattice(const float* table, int n, int va,
+                         const int64_t* trim, long long trim_sv,
+                         long long trim_sb, const float* pose,
+                         long long pose_sv, long long pose_sb,
+                         const float* cos_yaw, const float* sin_yaw,
+                         long long cs_sv, long long cs_sb, const float* ox,
+                         const float* oy, const int32_t* edge_ok,
+                         const uint8_t* live, uint8_t* out, int v, int b,
+                         int n_obs, int vo, void* stream) {
+  return launch(OutlineSegs{ox, oy, edge_ok, n_obs, vo},
+                lattice(table, n, va, trim, trim_sv, trim_sb, pose, pose_sv,
+                        pose_sb, cos_yaw, sin_yaw, cs_sv, cs_sb),
+                live, out, v, b * n, stream);
+}
+
+// cx, cy: [V, VA, C] f32; packed: [V, 8, S_pad] f32; mask: [V, S_pad] i32.
 int boundary_hits(const float* cx, const float* cy, const float* packed,
-                  const int32_t* mask, uint8_t* out, int v, int va, int c,
-                  int s_pad, void* stream) {
-  const dim3 grid((c + kThreads - 1) / kThreads, v);
-  const size_t smem = (size_t)s_pad * sizeof(Seg);
-  boundary_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      cx, cy, packed, mask, out, va, c, s_pad);
-  return (int)cudaGetLastError();
+                  const int32_t* mask, const uint8_t* live, uint8_t* out,
+                  int v, int va, int c, int s_pad, void* stream) {
+  return launch(BoundarySegs{packed, mask, s_pad},
+                PolyCands{cx, cy, va, c}, live, out, v, c, stream);
+}
+
+// The lattice form of boundary_hits; arguments as outline_hits_lattice.
+int boundary_hits_lattice(const float* table, int n, int va,
+                          const int64_t* trim, long long trim_sv,
+                          long long trim_sb, const float* pose,
+                          long long pose_sv, long long pose_sb,
+                          const float* cos_yaw, const float* sin_yaw,
+                          long long cs_sv, long long cs_sb,
+                          const float* packed, const int32_t* mask,
+                          const uint8_t* live, uint8_t* out, int v, int b,
+                          int s_pad, void* stream) {
+  return launch(BoundarySegs{packed, mask, s_pad},
+                lattice(table, n, va, trim, trim_sv, trim_sb, pose, pose_sv,
+                        pose_sb, cos_yaw, sin_yaw, cs_sv, cs_sb),
+                live, out, v, b * n, stream);
 }
 
 // cx, cy: [V, VA, C] f32; ox, oy, oax, oay, omn, omx: [V, NO, VO] f32;

@@ -16,17 +16,30 @@ Layout: candidates arrive vertex-major per vehicle, ``cx, cy [V, VA, C]``
 (C = beam x trims), so one launch covers a whole planning chunk of V
 vehicles. Obstacle bundles carry the same leading vehicle dim.
 
-What bounds the kernels on an H100: operations, not bytes. Each candidate
-edge is tested against every active obstacle edge (VA x NO x VO pairs,
-~20 f32 ops each) while the inputs are a few hundred KB. The design (one
-thread per candidate, the vehicle's active edges compacted into shared
-memory, early exit on the first hit) keeps every pair in registers and
-shared memory; skipping masked obstacles and degenerate padded edges is
-exact. What it leaves for later: warp-tiled candidates and bounding-box
-culling with a proven tolerance margin. The SAT kernel has the same
-design; there a separated pair needs a single axis, so the least work of
-a typical mask is below the time to read its candidates once, and bytes
-bound it.
+Two entry forms for the crossing kernels, one scan:
+
+- ``outline_hits(cx, cy, pre, live=None)`` / ``boundary_hits(...)`` take
+  candidate vertices; without ``live`` they return the hit mask, with it
+  ``live & ~hit``;
+- ``outline_hits_lattice(lattice, live, pre)`` /
+  ``boundary_hits_lattice(...)`` take one search layer's ``Lattice``
+  (area table, parent trims, poses and yaw cosines and sines) and its live
+  mask ``[V, B, n]``, build the candidates in the kernel and return the
+  feasibility mask ``live & ~hit``. The search feeds the outline result to
+  the boundary kernel as its live mask.
+
+What bounds the crossing kernels on an H100: operations, not bytes. Each
+live candidate edge is tested against every active segment (VA x active
+segments pairs, ~25 f32 ops each) while the inputs are a few hundred KB.
+The design (csrc/collision.cu says more): a grid of resident blocks, each
+compacting its vehicle's active segments into shared memory once; a warp
+a candidate, each lane a strided share of the segments, the warp leaving
+at its first hit; candidates that are not live are not scanned. Skipping
+masked obstacles, degenerate padded edges and dead candidates is exact;
+bounding-box culling is not (inside the tolerance band) and is left out.
+The SAT kernel keeps one thread per candidate; there a separated pair
+needs a single axis, so the least work of a typical mask is below the time
+to read its candidates once, and bytes bound it.
 
 Numerics: kernels and plain versions compute the crossing predicate in
 the XLA form of ``pdmpc_tpu.ops.search.candidate_boundary_violations``
@@ -106,6 +119,8 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/collision.cu`` with nvcc (once per process) and load
     it. The library lands in the package's ``_build/`` directory."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -127,13 +142,20 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
             print(proc.stdout + proc.stderr, flush=True)
         os.replace(tmp, out)
         lib = ctypes.CDLL(out)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.outline_hits.argtypes = [ptr] * 5 + [ptr] + [i32] * 5 + [ptr]
-        lib.outline_hits.restype = i32
-        lib.boundary_hits.argtypes = [ptr] * 4 + [ptr] + [i32] * 4 + [ptr]
-        lib.boundary_hits.restype = i32
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lattice = ([ptr, i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, ptr,
+                    i64, i64])
+        lib.outline_hits.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.outline_hits_lattice.argtypes = (lattice + [ptr] * 5
+                                             + [i32] * 4 + [ptr])
+        lib.boundary_hits.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.boundary_hits_lattice.argtypes = (lattice + [ptr] * 4
+                                              + [i32] * 3 + [ptr])
         lib.sat_hits.argtypes = [ptr] * 9 + [ptr] + [i32] * 5 + [ptr]
-        lib.sat_hits.restype = i32
+        for fn in (lib.outline_hits, lib.outline_hits_lattice,
+                   lib.boundary_hits, lib.boundary_hits_lattice,
+                   lib.sat_hits):
+            fn.restype = i32
         _lib = lib
         return lib
 
@@ -290,10 +312,12 @@ def _crossings_plain(cx, cy, b1x, b1y, sx, sy, ok):
     return hit.any(dim=-1).any(dim=1)
 
 
-def outline_hits_plain(cx, cy, pre: OutlinePre) -> torch.Tensor:
+def outline_hits_plain(cx, cy, pre: OutlinePre,
+                       live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] bool: a candidate edge crosses a valid edge of an active
-    obstacle. Obstacles are taken 8 at a time to bound memory, as
-    pdmpc_tpu's candidate_outline_collisions does (OBS_CHUNK)."""
+    obstacle (with ``live`` [V, C]: ``live & ~hit``). Obstacles are taken 8
+    at a time to bound memory, as pdmpc_tpu's candidate_outline_collisions
+    does (OBS_CHUNK)."""
     v, _, c = cx.shape
     no = pre.ox.shape[1]
     hit = torch.zeros((v, c), dtype=torch.bool, device=cx.device)
@@ -305,12 +329,14 @@ def outline_hits_plain(cx, cy, pre: OutlinePre) -> torch.Tensor:
         ok = pre.edge_ok[:, o:o + OUTLINE_GROUP].reshape(v, -1) > 0
         hit |= _crossings_plain(cx, cy, b1x.reshape(v, -1),
                                 b1y.reshape(v, -1), sx, sy, ok)
-    return hit
+    return hit if live is None else live.bool() & ~hit
 
 
-def boundary_hits_plain(cx, cy, pre: SegmentsPre) -> torch.Tensor:
+def boundary_hits_plain(cx, cy, pre: SegmentsPre,
+                        live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] bool: a candidate edge crosses an active boundary segment
-    (segments taken 32 at a time to bound memory)."""
+    (with ``live`` [V, C]: ``live & ~hit``); segments taken 32 at a time to
+    bound memory."""
     v, _, c = cx.shape
     s_pad = pre.packed.shape[-1]
     hit = torch.zeros((v, c), dtype=torch.bool, device=cx.device)
@@ -318,7 +344,55 @@ def boundary_hits_plain(cx, cy, pre: SegmentsPre) -> torch.Tensor:
         rows = pre.packed[:, :, s:s + SEG_GROUP]
         hit |= _crossings_plain(cx, cy, rows[:, 2], rows[:, 3], rows[:, 0],
                                 rows[:, 1], pre.mask[:, s:s + SEG_GROUP] > 0)
-    return hit
+    return hit if live is None else live.bool() & ~hit
+
+
+class Lattice(NamedTuple):
+    """One search layer's candidates: candidate ``b * n + j`` of vehicle v
+    is the area ``table[trim[v, b], j]`` placed at the parent pose
+    ``pose[v, b]`` with the parent yaw's cosine ``c`` and sine ``s``."""
+
+    table: torch.Tensor   # [n, n, VA, 2] f32
+    trim: torch.Tensor    # [V, B] i64
+    pose: torch.Tensor    # [V, B, 3] f32
+    c: torch.Tensor       # [V, B, 1] f32
+    s: torch.Tensor       # [V, B, 1] f32
+
+
+def candidate_polys(table, trim, pose, c, s):
+    """World-frame swept areas of every (beam node, successor) candidate,
+    in the kernels' vertex-major layout [V, VA, B*n].
+
+    table [n, n, VA, 2]; trim [V, B]; pose [V, B, 3]; c, s [V, B, 1]. The
+    transform is computed op by op, fused as the reference's XLA path is:
+    x = fma(c, tx, -(s * ty)) + px, y = fma(s, tx, c * ty) + py.
+    """
+    areas = table[trim]                                      # [V,B,n,VA,2]
+    c4, s4 = c[..., None], s[..., None]
+    ax = (fma(c4, areas[..., 0], -(s4 * areas[..., 1]))
+          + pose[..., 0, None, None])
+    ay = fma(s4, areas[..., 0], c4 * areas[..., 1]) + pose[..., 1, None, None]
+    v, _, _, va = ax.shape
+    return (ax.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous(),
+            ay.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous())
+
+
+def outline_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
+                               pre: OutlinePre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of the lattice's
+    candidates against the obstacle bundle."""
+    return outline_hits_plain(*candidate_polys(*lat), pre,
+                              live.reshape(live.shape[0], -1)
+                              ).reshape(live.shape)
+
+
+def boundary_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
+                                pre: SegmentsPre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of the lattice's
+    candidates against the boundary segments."""
+    return boundary_hits_plain(*candidate_polys(*lat), pre,
+                               live.reshape(live.shape[0], -1)
+                               ).reshape(live.shape)
 
 
 def sat_hits_plain(cx, cy, pre: ObstaclesPre) -> torch.Tensor:
@@ -374,77 +448,205 @@ def _check_operand(t, name, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous on {device}")
 
 
-def outline_hits(cx: torch.Tensor, cy: torch.Tensor,
-                 pre: OutlinePre) -> torch.Tensor:
-    """[V, C] outline-crossing mask of candidates cx, cy [V, VA, C]
-    against the obstacle bundle ``pre`` (leading dim V)."""
+_LIVE_DTYPES = (torch.bool, torch.uint8)
+
+
+def _device_of(live):
+    """Device index of a call's live mask (-1: the CPU); raises for any
+    device that is neither the CPU nor CUDA."""
+    if not (live.is_cuda or live.is_cpu):
+        raise ValueError(f"the collision checks run on CPU or CUDA tensors, "
+                         f"not on {live.device}")
+    return live.get_device()
+
+
+def _check(dev, specs):
+    """Raise unless every (name, tensor, shape, dtype, dense) in ``specs``
+    has that shape and dtype (None: bool or uint8), lies on device index
+    ``dev`` (-1: the CPU) and, where ``dense``, is contiguous. One pass of
+    cheap attribute reads: the wrappers stand in the host-bound step."""
+    for name, t, shape, dtype, dense in specs:
+        if (t.shape != shape
+                or (t.dtype != dtype if dtype is not None
+                    else t.dtype not in _LIVE_DTYPES)
+                or t.get_device() != dev or (dev < 0 and not t.is_cpu)
+                or (dense and not t.is_contiguous())):
+            raise ValueError(
+                f"{name}: expected {dtype or 'bool or uint8'} {shape} on "
+                f"device {dev}{' (contiguous)' if dense else ''}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_lattice(lat: Lattice, live: torch.Tensor, dev: int):
+    """Shapes, dtypes and devices of a lattice-form call; trims, poses and
+    c, s may be strided views (an expanded trim row, a slice of a gathered
+    payload), the rest must be dense. Returns (V, B, n, VA)."""
+    table, trim, pose, c, s = lat
+    if (table.dim() != 4 or table.shape[0] != table.shape[1]
+            or table.shape[3] != 2 or table.shape[2] > MAX_VA
+            or trim.dim() != 2):
+        raise ValueError(f"lattice: table must be [n, n, VA <= {MAX_VA}, 2] "
+                         f"and trim [V, B]; got {tuple(table.shape)}, "
+                         f"{tuple(trim.shape)}")
+    n, _, va, _ = table.shape
+    v, b = trim.shape
+    _check(dev, (("live", live, (v, b, n), None, dev >= 0),
+                 ("table", table, (n, n, va, 2), torch.float32, dev >= 0),
+                 ("trim", trim, (v, b), torch.int64, False),
+                 ("pose", pose, (v, b, 3), torch.float32, False),
+                 ("c", c, (v, b, 1), torch.float32, False),
+                 ("s", s, (v, b, 1), torch.float32, False)))
+    return v, b, n, va
+
+
+def _stream(dev):
+    """The current stream of CUDA device ``dev``, as a pointer."""
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
+def _lattice_args(lat: Lattice, n: int, va: int):
+    """The lattice's leading ctypes arguments (csrc: outline_hits_lattice):
+    pointers with their strides in elements, so the search passes trims,
+    poses and c, s without a copy."""
+    table, trim, pose, c, s = lat
+    if pose.stride(2) != 1 or c.stride() != s.stride():
+        raise ValueError("lattice: pose's last dim must be dense, c and s "
+                         "alike in strides")
+    return (table.data_ptr(), n, va, trim.data_ptr(), *trim.stride(),
+            pose.data_ptr(), *pose.stride()[:2], c.data_ptr(), s.data_ptr(),
+            *c.stride()[:2])
+
+
+def _launched(err, kernel):
+    if err != 0:
+        raise RuntimeError(f"{kernel.__name__} kernel launch failed: CUDA "
+                           f"error {err}")
+    kernel.launches += 1
+
+
+def _candidates(cx, cy, live):
+    """Checks of a (cx, cy)-form call; returns (device index, V, VA, C)."""
     _check_candidates(cx, cy)
-    if cx.device.type == "cpu":
-        return outline_hits_plain(cx, cy, pre)
     v, va, c = cx.shape
+    dev = _device_of(cx)
+    specs = [("cx", cx, (v, va, c), torch.float32, dev >= 0),
+             ("cy", cy, (v, va, c), torch.float32, dev >= 0)]
+    if live is not None:
+        specs.append(("live", live, (v, c), None, dev >= 0))
+    _check(dev, specs)
+    return dev, v, va, c
+
+
+def _outline_ptrs(pre: OutlinePre, v, dev):
+    """Checks of an obstacle bundle for the kernel; returns its pointers
+    and (NO, VO)."""
     no, vo = pre.ox.shape[1:]
-    for name, t, dt in (("cx", cx, torch.float32), ("cy", cy, torch.float32),
-                        ("ox", pre.ox, torch.float32),
-                        ("oy", pre.oy, torch.float32),
-                        ("edge_ok", pre.edge_ok, torch.int32)):
-        shape = (v, va, c) if name in ("cx", "cy") else (v, no, vo)
-        _check_operand(t, name, shape, dt, cx.device)
     if no * vo > _MAX_STAGED_EDGES:
         raise ValueError(f"{no * vo} obstacle edges exceed the shared-"
                          f"memory stage of {_MAX_STAGED_EDGES}")
+    _check(dev, (("ox", pre.ox, (v, no, vo), torch.float32, True),
+                 ("oy", pre.oy, (v, no, vo), torch.float32, True),
+                 ("edge_ok", pre.edge_ok, (v, no, vo), torch.int32, True)))
+    return (pre.ox.data_ptr(), pre.oy.data_ptr(), pre.edge_ok.data_ptr()), \
+        no, vo
+
+
+def _segment_ptrs(pre: SegmentsPre, v, dev):
+    """Checks of a segment bundle for the kernel; returns its pointers and
+    S_pad."""
+    s_pad = pre.packed.shape[-1]
+    if s_pad > _MAX_STAGED_EDGES:
+        raise ValueError(f"{s_pad} segments exceed the shared-memory stage "
+                         f"of {_MAX_STAGED_EDGES}")
+    _check(dev, (("packed", pre.packed, (v, 8, s_pad), torch.float32, True),
+                 ("mask", pre.mask, (v, s_pad), torch.int32, True)))
+    return (pre.packed.data_ptr(), pre.mask.data_ptr()), s_pad
+
+
+def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
+                 live: torch.Tensor | None = None) -> torch.Tensor:
+    """[V, C] outline-crossing mask of candidates cx, cy [V, VA, C]
+    against the obstacle bundle ``pre`` (leading dim V); with ``live``
+    [V, C] (bool or uint8) the feasibility ``live & ~hit`` instead, and
+    candidates that are not live are not scanned."""
+    dev, v, va, c = _candidates(cx, cy, live)
+    if dev < 0:
+        return outline_hits_plain(cx, cy, pre, live)
+    ptrs, no, vo = _outline_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    lib = build_kernels()
-    err = lib.outline_hits(
-        cx.data_ptr(), cy.data_ptr(), pre.ox.data_ptr(), pre.oy.data_ptr(),
-        pre.edge_ok.data_ptr(), out.data_ptr(), v, va, c, no, vo,
-        torch.cuda.current_stream(cx.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"outline_hits kernel launch failed: CUDA error "
-                           f"{err}")
-    outline_hits.launches += 1
+    _launched(build_kernels().outline_hits(
+        cx.data_ptr(), cy.data_ptr(), *ptrs,
+        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
+        no, vo, _stream(dev)), outline_hits)
     return out
 
 
 outline_hits.launches = 0
 
 
-def boundary_hits(cx: torch.Tensor, cy: torch.Tensor,
-                  pre: SegmentsPre) -> torch.Tensor:
+def outline_hits_lattice(lat: Lattice, live: torch.Tensor,
+                         pre: OutlinePre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of one search layer's
+    candidates (built in the kernel from ``lat``) against the obstacle
+    bundle ``pre``; ``live`` [V, B, n] bool or uint8. One launch of the
+    outline kernel (counted on ``outline_hits.launches``)."""
+    dev = _device_of(live)
+    v, b, n, va = _check_lattice(lat, live, dev)
+    if dev < 0:
+        return outline_hits_lattice_plain(lat, live, pre)
+    ptrs, no, vo = _outline_ptrs(pre, v, dev)
+    out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
+    if out.numel() == 0:
+        return out
+    _launched(build_kernels().outline_hits_lattice(
+        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+        v, b, no, vo, _stream(dev)), outline_hits)
+    return out
+
+
+def boundary_hits(cx: torch.Tensor, cy: torch.Tensor, pre: SegmentsPre,
+                  live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] boundary-crossing mask of candidates cx, cy [V, VA, C]
-    against the segment bundle ``pre`` (leading dim V)."""
-    _check_candidates(cx, cy)
-    if cx.device.type == "cpu":
-        return boundary_hits_plain(cx, cy, pre)
-    v, va, c = cx.shape
-    s_pad = pre.packed.shape[-1]
-    _check_operand(cx, "cx", (v, va, c), torch.float32, cx.device)
-    _check_operand(cy, "cy", (v, va, c), torch.float32, cx.device)
-    _check_operand(pre.packed, "packed", (v, 8, s_pad), torch.float32,
-                   cx.device)
-    _check_operand(pre.mask, "mask", (v, s_pad), torch.int32, cx.device)
-    if s_pad > _MAX_STAGED_EDGES:
-        raise ValueError(f"{s_pad} segments exceed the shared-memory stage "
-                         f"of {_MAX_STAGED_EDGES}")
+    against the segment bundle ``pre`` (leading dim V); with ``live``
+    [V, C] the feasibility ``live & ~hit`` instead."""
+    dev, v, va, c = _candidates(cx, cy, live)
+    if dev < 0:
+        return boundary_hits_plain(cx, cy, pre, live)
+    ptrs, s_pad = _segment_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    lib = build_kernels()
-    err = lib.boundary_hits(
-        cx.data_ptr(), cy.data_ptr(), pre.packed.data_ptr(),
-        pre.mask.data_ptr(), out.data_ptr(), v, va, c, s_pad,
-        torch.cuda.current_stream(cx.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"boundary_hits kernel launch failed: CUDA error "
-                           f"{err}")
-    boundary_hits.launches += 1
+    _launched(build_kernels().boundary_hits(
+        cx.data_ptr(), cy.data_ptr(), *ptrs,
+        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
+        s_pad, _stream(dev)), boundary_hits)
     return out
 
 
 boundary_hits.launches = 0
+
+
+def boundary_hits_lattice(lat: Lattice, live: torch.Tensor,
+                          pre: SegmentsPre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of one search layer's
+    candidates (built in the kernel from ``lat``) against the boundary
+    segments ``pre``; ``live`` [V, B, n] bool or uint8 (in the search: the
+    outline kernel's result). One launch of the boundary kernel (counted
+    on ``boundary_hits.launches``)."""
+    dev = _device_of(live)
+    v, b, n, va = _check_lattice(lat, live, dev)
+    if dev < 0:
+        return boundary_hits_lattice_plain(lat, live, pre)
+    ptrs, s_pad = _segment_ptrs(pre, v, dev)
+    out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
+    if out.numel() == 0:
+        return out
+    _launched(build_kernels().boundary_hits_lattice(
+        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+        v, b, s_pad, _stream(dev)), boundary_hits)
+    return out
 
 
 def sat_hits(cx: torch.Tensor, cy: torch.Tensor,

@@ -10,7 +10,11 @@ layer launches each collision kernel once.
 The collision checks go only through ``ops.collision``'s wrappers: the
 CUDA kernels on the card, their plain versions on the CPU. Obstacles are
 checked by outline crossing (road scenarios, ``non_convex``) or by SAT
-(convex path); the lanelet boundary, where there is one, by crossing.
+(convex path); the lanelet boundary, where there is one, by crossing. The
+crossing checks take each layer's lattice (area table, parent trims,
+poses, yaw cosines and sines) and its live mask and return the
+feasibility mask: the kernels build the candidates in registers and scan
+only live ones, so a layer's whole collision mask is one or two launches.
 
 Multiply-adds that XLA:CPU contracts in the reference (the child pose
 ``fma(c, dx, -(s * dy)) + x`` and ``fma(s, dx, c * dy) + y``, the same
@@ -28,9 +32,13 @@ import torch
 
 from pdmpc_torch.models.mpa import MpaTensors
 from pdmpc_torch.ops.collision import (
+    Lattice,
     SegmentsPre,
     boundary_hits,
+    boundary_hits_lattice,
+    candidate_polys,
     outline_hits,
+    outline_hits_lattice,
     precompute_obstacles,
     precompute_outline,
     precompute_segments,
@@ -152,23 +160,6 @@ def _cost_to_go(pos, ref_points, v_ref, k_child: int, dt: float):
     return torch.sum(sq, dim=-1)
 
 
-def _candidate_polys(table, trim, pose, c, s):
-    """World-frame swept areas of every (beam node, successor) candidate,
-    in the kernels' vertex-major layout [V, VA, B*n].
-
-    table [n, n, VA, 2]; trim [V, B]; pose [V, B, 3]; c, s [V, B, 1]. The
-    transform is computed op by op, fused as the reference's XLA path is.
-    """
-    areas = table[trim]                                      # [V,B,n,VA,2]
-    c4, s4 = c[..., None], s[..., None]
-    ax = (fma(c4, areas[..., 0], -(s4 * areas[..., 1]))
-          + pose[..., 0, None, None])
-    ay = fma(s4, areas[..., 0], c4 * areas[..., 1]) + pose[..., 1, None, None]
-    v, _, _, va = ax.shape
-    return (ax.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous(),
-            ay.permute(0, 3, 1, 2).reshape(v, va, -1).contiguous())
-
-
 def plan_trajectory(
     mpa: MpaTensors,
     x0: torch.Tensor,            # [V, 3] pose (x, y, yaw)
@@ -201,8 +192,7 @@ def plan_trajectory(
 
     # candidate-independent obstacle geometry, once per planning pass for
     # all Hp layers: [Hp, V, NO_pad, VO] so each layer's slice is contiguous
-    precompute, hits = ((precompute_outline, outline_hits) if non_convex
-                        else (precompute_obstacles, sat_hits))
+    precompute = precompute_outline if non_convex else precompute_obstacles
     obs_pre = precompute(obstacles.polys.permute(2, 0, 1, 3, 4),
                          obstacles.mask.permute(2, 0, 1))
     if segments_pre is None and boundary_segments is not None:
@@ -243,18 +233,24 @@ def plan_trajectory(
         h_child = _cost_to_go(child_pos, ref_points, v_ref, k, dt)
 
         # --- collision mask (eval_edge_exact capability) ------------------
-        cx, cy = _candidate_polys(mpa.area, trim, pose, c, s)
+        # feasible = valid & allowed & ~(obstacle hit | boundary hit); the
+        # crossing kernels build the candidates themselves and scan only
+        # the ones still live
+        live = valid[..., None] & allowed                     # [V, B, n]
         obs_k = type(obs_pre)(*(x[k] for x in obs_pre))
-        collide = hits(cx, cy, obs_k).reshape(v, b_in, n)
+        if non_convex:
+            feasible = outline_hits_lattice(
+                Lattice(mpa.area, trim, pose, c, s), live, obs_k)
+        else:
+            cx, cy = candidate_polys(mpa.area, trim, pose, c, s)
+            feasible = live & ~sat_hits(cx, cy, obs_k).reshape(v, b_in, n)
         if segments_pre is not None:
             # boundary areas: without offset; larger offset at final step
             table = (mpa.area_large_offset if k == hp - 1
                      else mpa.area_no_offset)
-            bx, by = _candidate_polys(table, trim, pose, c, s)
-            collide |= boundary_hits(bx, by, segments_pre).reshape(
-                v, b_in, n)
+            feasible = boundary_hits_lattice(
+                Lattice(table, trim, pose, c, s), feasible, segments_pre)
 
-        feasible = valid[..., None] & allowed & ~collide      # [V, B, n]
         n_expanded = n_expanded + feasible.sum(dim=(1, 2))
         if b_out >= b_in * n:
             # exhaustive layer: every candidate survives, no pruning

@@ -7,13 +7,17 @@ Builds the default configuration of the scenario (CommonRoad: 20 vehicles
 by default, outline and boundary kernels; circle: 10 vehicles by default,
 the SAT kernel; beam 512, Hp 6) on CUDA, runs WARMUP steps, times TIMED
 steps with the host clock (each ending in ``torch.cuda.synchronize()``),
-then traces PROFILED more steps with ``torch.profiler``. Prints the device
-operations that took the most device time and, as the last line, one JSON
-object: the card's name and power limit, the median step time, the device
-time of a step (kernels, copies and fills on the card) and of the
-collision kernels, the idle share
-(one minus device time over the untraced median step time) and the
-launches, copies and stream synchronisations per step.
+traces PROFILED more steps with ``torch.profiler``, then times HOSTED
+more steps with the host clock around every call of the collision
+kernels' wrappers. Prints the device operations that took the most
+device time and, as the last line, one JSON object: the card's name and
+power limit, the median step time, the device time of a step (kernels,
+copies and fills on the card) and of the collision kernels, the idle
+share (one minus device time over the untraced median step time), the
+launches, copies and stream synchronisations per step, and per collision
+kernel its launches per step (the wrappers' counters over the timed
+steps), its device ms per step and µs per launch (profiler) and its
+wrapper's host µs per call (HOSTED steps).
 """
 
 from __future__ import annotations
@@ -33,9 +37,47 @@ from pdmpc_torch.config import Config, ScenarioType
 from pdmpc_torch.controller import initial_state, make_prioritized_step
 from pdmpc_torch.experiment import create_scenario
 from pdmpc_torch.models.mpa import build_mpa
+from pdmpc_torch.ops import collision as coll
+from pdmpc_torch.ops import search
 
-WARMUP, TIMED, PROFILED = 3, 8, 4
+WARMUP, TIMED, HOSTED, PROFILED = 3, 8, 3, 4
 TOP = 15
+# collision kernel -> the search's wrapper that launches it, and a
+# fragment of its device kernels' names (templates of csrc/collision.cu)
+KERNELS = {
+    "outline_hits": ("outline_hits_lattice", "OutlineSegs"),
+    "boundary_hits": ("boundary_hits_lattice", "BoundarySegs"),
+    "sat_hits": ("sat_hits", "sat_hits_kernel"),
+}
+
+
+def host_timed(step, state, k, n):
+    """Run ``n`` steps with the host clock around each call of the
+    search's collision wrappers; returns the state, the next step index
+    and {wrapper: [calls, seconds]}."""
+    spent = {}
+    originals = {}
+    for name, _ in KERNELS.values():
+        fn = originals[name] = getattr(search, name)
+        spent[name] = [0, 0.0]
+
+        def timed(*args, _fn=fn, _acc=spent[name]):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            _acc[1] += time.perf_counter() - t0
+            _acc[0] += 1
+            return out
+
+        setattr(search, name, timed)
+    try:
+        for _ in range(n):
+            state, _ = step(state, k)
+            k += 1
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(search, name, fn)
+    return state, k, spent
 
 
 def main(argv=None) -> int:
@@ -55,7 +97,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cfg = Config(scenario_type=scenario, amount=amount,
-                 T_end=0.2 * (WARMUP + TIMED + PROFILED))
+                 T_end=0.2 * (WARMUP + TIMED + HOSTED + PROFILED))
     cfg = cfg.validate()
     mpa = build_mpa(cfg)
     mpa_t = mpa.to_tensors_for(cfg, device)
@@ -68,6 +110,8 @@ def main(argv=None) -> int:
         state, _ = step(state, k)
         k += 1
     torch.cuda.synchronize()
+    for name in KERNELS:
+        getattr(coll, name).launches = 0
     wall = []
     for _ in range(TIMED):
         t0 = time.perf_counter()
@@ -75,6 +119,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         k += 1
+    launches = {name: getattr(coll, name).launches / TIMED
+                for name in KERNELS}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -85,6 +131,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
     events = prof.key_averages()
+    # last, so the timed and traced steps stay those of earlier versions
+    state, k, spent = host_timed(step, state, k, HOSTED)
 
     def per_step(names):
         return sum(e.count for e in events if e.key in names) / PROFILED
@@ -121,7 +169,19 @@ def main(argv=None) -> int:
         "memcpy_per_step": per_step({"cudaMemcpyAsync", "cudaMemcpy"}),
         "syncs_per_step": per_step({"cudaStreamSynchronize",
                                     "cudaDeviceSynchronize"}),
+        "kernels": {},
     }
+    for name, (wrapper, fragment) in KERNELS.items():
+        ops = [e for e in device_ops if fragment in e.key]
+        count = sum(e.count for e in ops) / PROFILED
+        calls, seconds = spent[wrapper]
+        summary["kernels"][name] = {
+            "launches_per_step": launches[name],
+            "device_ms_per_step": device_ms(ops),
+            "device_us_per_launch": (device_ms(ops) * 1e3 / count
+                                     if count else None),
+            "host_us_per_call": seconds * 1e6 / calls if calls else None,
+        }
     print(json.dumps(summary))
     return 0
 

@@ -27,6 +27,7 @@ polygons, and polygons padded to 16 vertices by repeating the last one
 (degenerate edges, zero SAT axes).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -350,3 +351,205 @@ def test_wrappers_check_inputs(lattice):
         tc.outline_hits(cx.double(), cy.double(), pre)
     with pytest.raises(ValueError):
         tc.outline_hits(cx[0], cy[0], pre)
+
+
+# ---------------------------------------------------------------------------
+# Lattice forms: one search layer's candidates built from the area table
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def road_layer():
+    """One search layer of the cr3 road MPA (its non-convex area tables and
+    transitions) for 2 vehicles x 8 parent nodes, from a numpy seed:
+    parents close together (neighbouring lattices touch), some obstacles
+    ARE candidate polygons, some boundary segments ARE candidate edges of
+    the no-offset and large-offset areas, plus random polygons and
+    segments and degenerate ones; c, s given as f32 numbers to both
+    sides."""
+    from pdmpc_tpu.config import Config
+    from pdmpc_tpu.models.mpa import build_mpa
+
+    cfg = Config(amount=3, T_end=4.0, beam_width=64).validate()
+    mpa = {k: np.asarray(v) for k, v in
+           build_mpa(cfg).to_tensors_for(cfg)._asdict().items()}
+    rng = np.random.default_rng(3)
+    v, b = 2, 8
+    n = mpa["area"].shape[0]
+    trim = rng.integers(0, n, size=(v, b))
+    pose = np.concatenate([rng.uniform(0.5, 2.5, (v, b, 2)),
+                           rng.uniform(-0.5, 0.5, (v, b, 1))],
+                          -1).astype(np.float32)
+    c, s = np.cos(pose[..., 2:]), np.sin(pose[..., 2:])
+    valid = rng.random((v, b)) < 0.8
+    cand, no_off, large = (
+        np.asarray(_xla_polys(mpa[k], trim, pose, c, s))
+        for k in ("area", "area_no_offset", "area_large_offset"))
+    obs = np.zeros((v, 12, VO, 2), np.float32)
+    segs = rng.uniform(0.5, 2.5, (v, 40, 1, 2)) + rng.normal(
+        0, 0.1, (v, 40, 2, 2))
+    for i in range(v):
+        for o, c_i in enumerate(rng.choice(b * n, 2, replace=False)):
+            obs[i, o] = pad16(cand[i, c_i])
+        for o in range(2, 12):
+            n_v = rng.integers(3, 9)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+            obs[i, o] = pad16(rng.uniform(0.5, 2.5, 2) + rng.uniform(
+                0.05, 0.15) * np.stack([np.cos(ang), np.sin(ang)], -1))
+        for k in range(0, 40, 4):                       # candidate edges
+            poly = (no_off if k % 2 else large)[i, rng.integers(b * n)]
+            e = rng.integers(poly.shape[0])
+            segs[i, k] = [poly[e], poly[(e + 1) % poly.shape[0]]]
+    segs[:, 1::7, 1] = segs[:, 1::7, 0]                 # degenerate
+    obs_mask = rng.random((v, 12)) < 0.7
+    obs_mask[:, 0] = True
+    seg_mask = rng.random((v, 40)) < 0.8
+    return dict(mpa=mpa, trim=trim, pose=pose, c=c, s=s, valid=valid,
+                obs=obs, obs_mask=obs_mask, segs=segs.astype(np.float32),
+                seg_mask=seg_mask)
+
+
+def _world(table, trim, pose, c, s):
+    """[B*n, VA, 2] candidates of one vehicle's layer as pdmpc_tpu's XLA
+    search path builds them (ops/search.py plan_trajectory,
+    use_pallas=False); c, s [B, 1]."""
+    n, _, va, _ = table.shape
+    areas = table[trim]                                 # [B, n, VA, 2]
+    ax = (c[:, :, None] * areas[..., 0]
+          - s[:, :, None] * areas[..., 1] + pose[:, 0:1, None])
+    ay = (s[:, :, None] * areas[..., 0]
+          + c[:, :, None] * areas[..., 1] + pose[:, 1:2, None])
+    return jnp.stack([ax, ay], axis=-1).reshape(trim.shape[0] * n, va, 2)
+
+
+@jax.jit
+def _xla_polys(table, trim, pose, c, s):
+    """[V, B*n, VA, 2]: ``_world`` for each vehicle, jitted (XLA:CPU
+    contracts its multiply-adds there, as in the search)."""
+    return jax.vmap(_world, in_axes=(None, 0, 0, 0, 0))(table, trim, pose,
+                                                         c, s)
+
+
+@jax.jit
+def _xla_feasible(area, bnd_table, trim, pose, c, s, valid, allowed, obs,
+                  obs_mask, segs, seg_mask):
+    """valid & allowed & ~(outline | boundary) for each vehicle, with the
+    candidates built as pdmpc_tpu's XLA search path builds them
+    (ops/search.py plan_trajectory, use_pallas=False)."""
+    def one(trim, pose, c, s, valid, allowed, obs, obs_mask, segs,
+            seg_mask):
+        shape = allowed.shape
+        collide = jsearch.candidate_outline_collisions(
+            _world(area, trim, pose, c, s), obs, obs_mask).reshape(shape)
+        crosses = jsearch.candidate_boundary_violations(
+            _world(bnd_table, trim, pose, c, s), segs,
+            seg_mask).reshape(shape)
+        return valid[:, None] & allowed & ~(collide | crosses)
+
+    return jax.vmap(one)(trim, pose, c, s, valid, allowed, obs, obs_mask,
+                         segs, seg_mask)
+
+
+def _port_layer(d, k):
+    """The port's lattice, live mask and bundles of layer ``k``."""
+    t = torch.tensor
+    mpa = d["mpa"]
+    hp = mpa["transition"].shape[0]
+    trim = t(d["trim"])
+    lat = tc.Lattice(t(mpa["area"]), trim, t(d["pose"]), t(d["c"]),
+                     t(d["s"]))
+    bnd = t(mpa["area_large_offset" if k == hp - 1 else "area_no_offset"])
+    live = t(d["valid"])[..., None] & t(mpa["transition"][k])[trim]
+    return (lat, lat._replace(table=bnd), live,
+            tc.precompute_outline(t(d["obs"]), t(d["obs_mask"])),
+            tc.precompute_segments(t(d["segs"]), t(d["seg_mask"])))
+
+
+@pytest.mark.parametrize("layer", ["first", "last"])
+def test_lattice_plain_bit_equal_to_xla(road_layer, layer):
+    """The lattice forms chained as the search chains them (outline result
+    as the boundary kernel's live mask) equal the XLA path's feasibility
+    mask bit for bit; at the last layer the boundary check takes the
+    large-offset areas. The candidates their plain versions build equal
+    the XLA path's bit for bit."""
+    d = road_layer
+    hp = d["mpa"]["transition"].shape[0]
+    k = 0 if layer == "first" else hp - 1
+    lat, bnd_lat, live, out_pre, seg_pre = _port_layer(d, k)
+    for lat_ in (lat, bnd_lat):
+        cx, cy = tc.candidate_polys(*lat_)
+        np.testing.assert_array_equal(
+            torch.stack([cx, cy], -1).permute(0, 2, 1, 3).numpy(),
+            np.asarray(_xla_polys(*(x.numpy() for x in lat_))))
+    feasible = tc.outline_hits_lattice(lat, live, out_pre)
+    np.testing.assert_array_equal(
+        feasible.numpy(), tc.outline_hits_lattice_plain(lat, live, out_pre))
+    got = tc.boundary_hits_lattice(bnd_lat, feasible, seg_pre)
+    np.testing.assert_array_equal(
+        got.numpy(), tc.boundary_hits_lattice_plain(bnd_lat, feasible,
+                                                    seg_pre))
+    mpa = d["mpa"]
+    want = _xla_feasible(
+        mpa["area"], mpa["area_large_offset" if k == hp - 1
+                         else "area_no_offset"],
+        d["trim"], d["pose"], d["c"], d["s"], d["valid"],
+        mpa["transition"][k][d["trim"]], d["obs"], d["obs_mask"], d["segs"],
+        d["seg_mask"])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # non-trivial: each check rules out live candidates, some survive
+    assert 0 < int(feasible.sum()) < int(live.sum())
+    assert 0 < int(got.sum()) < int(feasible.sum())
+
+
+@pytest.mark.parametrize("live_dtype", [torch.bool, torch.uint8])
+@pytest.mark.parametrize("kernel", ["outline_hits", "boundary_hits"])
+def test_lattice_forms_take_a_live_mask(road_layer, kernel, live_dtype):
+    """Candidates that are not live come out False; live ones equal ~hit
+    of the (cx, cy) form on the same candidates; the (cx, cy) form with a
+    live mask returns the same feasibility."""
+    lat, bnd_lat, _, out_pre, seg_pre = _port_layer(road_layer, 1)
+    if kernel == "boundary_hits":
+        lat, pre = bnd_lat, seg_pre
+    else:
+        pre = out_pre
+    rng = np.random.default_rng(4)
+    v, b = lat.trim.shape
+    n = lat.table.shape[0]
+    live = torch.as_tensor(rng.random((v, b, n)) < 0.5)
+    cx, cy = tc.candidate_polys(*lat)
+    hit = getattr(tc, kernel)(cx, cy, pre).reshape(v, b, n)
+    assert 0 < int((hit & live).sum()) < int(live.sum())
+    got = getattr(tc, kernel + "_lattice")(lat, live.to(live_dtype), pre)
+    assert got.dtype == torch.bool and got.shape == (v, b, n)
+    assert not got[~live].any()
+    assert torch.equal(got[live], ~hit[live])
+    flat = getattr(tc, kernel)(cx, cy, pre,
+                               live.reshape(v, -1).to(live_dtype))
+    assert torch.equal(flat, got.reshape(v, -1))
+
+
+def test_lattice_wrappers_check_inputs(road_layer):
+    lat, bnd_lat, live, out_pre, seg_pre = _port_layer(road_layer, 0)
+    for fn, lat_, pre in ((tc.outline_hits_lattice, lat, out_pre),
+                          (tc.boundary_hits_lattice, bnd_lat, seg_pre)):
+        for bad in (dict(live=live[:, :-1]),            # shapes
+                    dict(live=live.float()),            # dtypes
+                    dict(lat=lat_._replace(trim=lat_.trim.int())),
+                    dict(lat=lat_._replace(table=lat_.table[:, :5])),
+                    dict(lat=lat_._replace(c=lat_.c.double())),
+                    dict(lat=lat_._replace(pose=lat_.pose[..., :2])),
+                    dict(live=live.to("meta")),         # mixed devices
+                    # one device, but not CUDA: no plain fallback
+                    dict(lat=tc.Lattice(*(x.to("meta") for x in lat_)),
+                         live=live.to("meta"))):
+            args = dict(lat=lat_, live=live, pre=pre) | bad
+            with pytest.raises(ValueError):
+                fn(**args)
+    cx, cy = tc.candidate_polys(*lat)
+    for fn, pre in ((tc.outline_hits, out_pre), (tc.boundary_hits, seg_pre)):
+        with pytest.raises(ValueError):
+            fn(cx, cy, pre, live)                       # live not [V, C]
+        with pytest.raises(ValueError):
+            fn(cx, cy, pre, live.reshape(2, -1).float())
+        with pytest.raises(ValueError):
+            fn(cx.to("meta"), cy.to("meta"), pre)

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of pdmpc_torch, nor chip_smoke.py, loads
-jax or anything of pdmpc_tpu; and its entry points refuse to fall back to
-the CPU silently."""
+"""The port stands alone: no module of pdmpc_torch, nor chip_smoke.py or
+compare_trees.py, loads jax or anything of pdmpc_tpu; and its entry points
+refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -19,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(pdmpc_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import compare_trees
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "pdmpc_tpu")))
 print(len(names), bad)

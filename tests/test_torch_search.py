@@ -64,13 +64,10 @@ def replay(request):
     return cfg, mpa_t, caps
 
 
-def test_plans_match_reference(replay):
-    cfg, mpa_j, caps = replay
-    mpa = convert.mpa_from_numpy(
-        {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
+def _reference_planner(cfg, mpa_j, cap):
+    """pdmpc_tpu's XLA-path planner for all vehicles of a captured step,
+    jitted; call it on the capture."""
     hp = cfg.Hp
-    non_convex = cfg.use_non_convex_obstacles
-    road = "bnd_segs" in caps[0]
 
     def ref_plan(x0, trim0, ref_p, v_ref, polys, mask, segs=None,
                  smask=None):
@@ -79,25 +76,38 @@ def test_plans_match_reference(replay):
         return jsearch.plan_trajectory(
             mpa_j, x0, trim0, ref_p, v_ref, obs, cfg.dt_seconds,
             cfg.beam_width, boundary_segments=segs, boundary_mask=smask,
-            use_pallas=False, non_convex=non_convex)
+            use_pallas=False, non_convex=cfg.use_non_convex_obstacles)
 
     ref_plan = jax.jit(jax.vmap(ref_plan))
     keys = ["pose0", "trim0", "ref_points", "v_ref", "obs_polys", "obs_mask"]
-    if road:
+    if "bnd_segs" in cap:
         keys += ["bnd_segs", "bnd_mask"]
+    return lambda c: ref_plan(*(c[key] for key in keys))
+
+
+def _port_plan(cfg, mpa, cap):
+    """The port's plan of all vehicles of a captured step, on the CPU."""
+    t = {key: torch.tensor(cap[key]) for key in cap}
+    n_obs = cap["obs_mask"].shape[1]
+    return tsearch.plan_trajectory(
+        mpa, t["pose0"], t["trim0"].long(), t["ref_points"], t["v_ref"],
+        tsearch.Obstacles(polys=t["obs_polys"], mask=t["obs_mask"][
+            :, :, None].expand(-1, n_obs, cfg.Hp)),
+        cfg.dt_seconds, cfg.beam_width,
+        boundary_segments=t.get("bnd_segs"),
+        boundary_mask=t.get("bnd_mask"),
+        non_convex=cfg.use_non_convex_obstacles)
+
+
+def test_plans_match_reference(replay):
+    cfg, mpa_j, caps = replay
+    mpa = convert.mpa_from_numpy(
+        {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
+    ref_plan = _reference_planner(cfg, mpa_j, caps[0])
     n_checked = n_hit_obstacles = n_pruned = 0
     for k, cap in enumerate(caps):
-        want = ref_plan(*(cap[key] for key in keys))
-        t = {key: torch.tensor(cap[key]) for key in cap}
-        n_obs = cap["obs_mask"].shape[1]
-        got = tsearch.plan_trajectory(
-            mpa, t["pose0"], t["trim0"].long(), t["ref_points"], t["v_ref"],
-            tsearch.Obstacles(polys=t["obs_polys"], mask=t["obs_mask"][
-                :, :, None].expand(-1, n_obs, hp)),
-            cfg.dt_seconds, cfg.beam_width,
-            boundary_segments=t.get("bnd_segs"),
-            boundary_mask=t.get("bnd_mask"), non_convex=non_convex,
-        )
+        want = ref_plan(cap)
+        got = _port_plan(cfg, mpa, cap)
         msg = f"step {k}"
         for field in ("trims", "is_exhausted", "n_expanded", "cost"):
             np.testing.assert_array_equal(
@@ -128,3 +138,44 @@ def test_cost_to_go_matches_reference():
                                   torch.as_tensor(v_ref), k, 0.2)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                    atol=1e-7)
+
+
+def test_collision_checks_per_layer(replay, monkeypatch):
+    """Each search layer masks its candidates with one call of each check
+    that applies: on the road the outline and boundary kernels' lattice
+    forms, the outline result passed on as the boundary check's live mask;
+    on the circle the SAT kernel on built candidates and no crossing
+    kernel. The plan so made is the reference's XLA-path plan."""
+    cfg, mpa_j, caps = replay
+    mpa = convert.mpa_from_numpy(
+        {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
+    hp = cfg.Hp
+    cap = max(caps, key=lambda c: int(c["obs_mask"].sum()))
+
+    names = ("outline_hits_lattice", "boundary_hits_lattice", "sat_hits",
+             "outline_hits", "boundary_hits")
+    calls = {name: [] for name in names}
+    for name in names:
+        def recorded(*args, _name=name, _fn=getattr(tsearch, name)):
+            out = _fn(*args)
+            calls[_name].append((args, out))
+            return out
+        monkeypatch.setattr(tsearch, name, recorded)
+    got = _port_plan(cfg, mpa, cap)
+    road = "bnd_segs" in cap
+    assert {name: len(c) for name, c in calls.items()} == {
+        "outline_hits_lattice": hp if road else 0,
+        "boundary_hits_lattice": hp if road else 0,
+        "sat_hits": 0 if road else hp,
+        "outline_hits": 0, "boundary_hits": 0}
+    for (_, outline), (args, _) in zip(calls["outline_hits_lattice"],
+                                       calls["boundary_hits_lattice"]):
+        assert args[1] is outline
+
+    want = _reference_planner(cfg, mpa_j, cap)(cap)
+    for field in ("trims", "is_exhausted", "n_expanded", "cost"):
+        np.testing.assert_array_equal(
+            getattr(got, field).numpy(), np.asarray(getattr(want, field)),
+            err_msg=field)
+    np.testing.assert_allclose(got.poses.numpy(), np.asarray(want.poses),
+                               rtol=2.4e-7, atol=1e-12)
