@@ -11,7 +11,9 @@ Phases, any failure exits non-zero:
    outline and boundary kernels' (cx, cy) form on random polygons with
    exact touches at the road path's widths, all candidates live (as the
    kernels' earlier designs were timed) and with a live mask at the road
-   MPA's 37.5%; the SAT kernel at the circle path's shapes;
+   MPA's 37.5%; the SAT kernel's (cx, cy) form at the circle path's
+   shapes, all live and 37.5% live, and its lattice form on a layer of
+   512 parents x 12 successors, all live and 37.5% live;
 3. road path — run_experiment on the default 20-vehicle CommonRoad
    configuration (beam 512, 20 steps) — with every kernel's launch counter
    zeroed just before and read just after: the outline and boundary
@@ -30,15 +32,16 @@ Phases, any failure exits non-zero:
    with the kernels and with their plain versions swapped in; the trims,
    costs and poses must be equal;
 8. path shapes: every search layer's lattice-form call of the outline
-   and boundary kernels in phase 7's road plan, held bit for bit against
-   its plain version on the same inputs and timed beside it.
+   and boundary kernels in phase 7's road plan, and of the SAT kernel in
+   its circle plan, held bit for bit against its plain version on the
+   same inputs and timed beside it.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
 JSON: per kernel the keys of the port's contract (phase 2's all-live
-numbers, launches from phases 3 and 5) and, for the crossing kernels,
-``live_mask``, ``path`` (phase 8, per layer and per plan)
-and ``launches_per_step``.
+numbers, launches from phases 3 and 5), ``live_mask``, ``path`` (phase 8,
+per layer and per plan) and ``launches_per_step``; for SAT also
+``lattice`` (phase 2's lattice form).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -59,8 +63,8 @@ SEED = 0
 # lanelets x 22 boundary segments
 V, VA, C, N_OBS, VO, N_SEG = 2, 6, 512 * 12, 60, 16, 176
 # circle-path shapes of the SAT kernel: 5-vertex convex areas, 3 obstacle
-# families x 10 vehicles (padded to 32)
-VA_SAT, N_OBS_SAT = 5, 30
+# families x 10 vehicles (padded to 32), 12 trims
+VA_SAT, N_OBS_SAT, N_TRIMS_SAT = 5, 30, 12
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -151,19 +155,16 @@ def kernel_inputs(torch, dev):
             tensor(torch, seg_mask, dev, torch.bool))
 
 
-def sat_inputs(torch, dev):
-    """Circle-path inputs of the SAT kernel: convex candidates [V, 5, C]
-    (every other one a 4-vertex area with its last vertex repeated, as the
-    straight maneuvers are), 30 convex obstacles a vehicle: every third a
-    candidate, every third an edge-sharing box (an exact touch), the rest
-    random; half of them masked."""
-    rng = np.random.default_rng(SEED + 1)
-    cand = rand_polys(rng, V * C, VA_SAT, 0.15).reshape(V, C, VA_SAT, 2)
-    cand[:, ::2, -1] = cand[:, ::2, -2]
+def sat_obstacles(rng, cand):
+    """30 convex obstacles [V, 30, VO, 2] a vehicle for candidates ``cand``
+    [V, C, VA, 2]: every third a candidate, every third an edge-sharing
+    box (an exact touch), the rest random; and a mask with half of them
+    off."""
+    v_count, c_count = cand.shape[:2]
     obs = pad_obstacles(rng, cand, N_OBS_SAT)
-    for v in range(V):
+    for v in range(v_count):
         for o in range(1, N_OBS_SAT, 3):
-            poly = cand[v, rng.integers(C)]
+            poly = cand[v, rng.integers(c_count)]
             a, b = poly[0], poly[1]
             normal = np.array([b[1] - a[1], a[0] - b[0]])
             normal *= 0.2 / max(np.linalg.norm(normal), 1e-9)
@@ -172,9 +173,46 @@ def sat_inputs(torch, dev):
             box = np.stack([a, a + normal, b + normal, b])
             obs[v, o, :4] = box
             obs[v, o, 4:] = box[-1]
-    mask = rng.random((V, N_OBS_SAT)) < 0.5
+    return obs, rng.random((v_count, N_OBS_SAT)) < 0.5
+
+
+def sat_inputs(torch, dev):
+    """Circle-path inputs of the SAT kernel: convex candidates [V, 5, C]
+    (every other one a 4-vertex area with its last vertex repeated, as the
+    straight maneuvers are) and ``sat_obstacles`` for them."""
+    rng = np.random.default_rng(SEED + 1)
+    cand = rand_polys(rng, V * C, VA_SAT, 0.15).reshape(V, C, VA_SAT, 2)
+    cand[:, ::2, -1] = cand[:, ::2, -2]
+    obs, mask = sat_obstacles(rng, cand)
     return (*vertex_major(torch, cand, dev), tensor(torch, obs, dev),
             tensor(torch, mask, dev, torch.bool))
+
+
+def sat_lattice_inputs(torch, coll, dev):
+    """A search layer for the SAT kernel's lattice form at the circle
+    path's widths: V = 2 vehicles of 512 parents x 12 successors, a table
+    of random convex areas [12, 12, 5, 2] (every other one with its last
+    vertex repeated) ahead of the parent, parents spread over the map, and
+    ``sat_obstacles`` drawn from the lattice's own candidates, as the
+    kernel builds them (exact touches). Returns (lattice, bundle)."""
+    rng = np.random.default_rng(SEED + 2)
+    n, b = N_TRIMS_SAT, C // N_TRIMS_SAT
+    table = rand_polys(rng, n * n, VA_SAT, 0.15)
+    table += (rng.uniform([0.0, -0.05], [0.2, 0.05], size=(n * n, 1, 2))
+              - table.mean(axis=1, keepdims=True))
+    table[::2, -1] = table[::2, -2]
+    pose = np.concatenate([rng.uniform([0.5, 0.5], [4.0, 3.5], (V, b, 2)),
+                           rng.uniform(-np.pi, np.pi, (V, b, 1))], -1)
+    pose = tensor(torch, pose, dev)
+    lat = coll.Lattice(
+        tensor(torch, table.reshape(n, n, VA_SAT, 2), dev),
+        tensor(torch, rng.integers(0, n, (V, b)), dev, torch.int64), pose,
+        torch.cos(pose[..., 2:]), torch.sin(pose[..., 2:]))
+    cx, cy = coll.candidate_polys(*lat)
+    cand = torch.stack([cx, cy], -1).permute(0, 2, 1, 3).cpu().numpy()
+    obs, mask = sat_obstacles(rng, cand)
+    return lat, coll.precompute_obstacles(
+        tensor(torch, obs, dev), tensor(torch, mask, dev, torch.bool))
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -216,6 +254,15 @@ def device_ms(torch, fn, reps=30, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def roofline(ops, n_bytes):
+    """(bound ms, bound_by): the larger of ``ops`` f32 operations over the
+    card's peak rate and ``n_bytes`` over its memory rate."""
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
 def crossing_bound(live, feasible, n_active, va, in_bytes):
     """(bound ms, bound_by) of a crossing mask: every (edge, active
     segment) pair of a live candidate without a hit, one pair of a live
@@ -226,10 +273,54 @@ def crossing_bound(live, feasible, n_active, va, in_bytes):
     free = feasible.reshape(v, -1).sum(dim=1)
     ops = float(((free * va * n_active + (n_live - free)).sum())
                 * OPS_PER_PAIR)
-    ops_ms = ops / PEAK_F32_OPS * 1e3
-    bytes_ms = (in_bytes + live.numel()) / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+    return roofline(ops, in_bytes + live.numel())
+
+
+def distinct_vertices(x, y):
+    """Vertices of polygons ``x, y`` [..., K] (vertex last) that differ
+    from their predecessor, the first always: what is left of a polygon
+    padded by repeated vertices, as the SAT kernel stages it. A polygon of
+    k distinct vertices has k non-zero axes."""
+    new = (x[..., 1:] != x[..., :-1]) | (y[..., 1:] != y[..., :-1])
+    return 1 + new.sum(dim=-1)
+
+
+def sat_bundle_bytes(pre):
+    """Bytes of a SAT bundle the function must read: the mask and the six
+    fields of every active obstacle."""
+    n_active = int((pre.mask > 0).sum())
+    return (pre.mask.numel() * pre.mask.element_size()
+            + n_active * 6 * pre.ox.shape[-1] * pre.ox.element_size())
+
+
+def sat_bound(live, feasible, cand_verts, pre, in_bytes):
+    """(bound ms, bound_by) of a SAT mask, over distinct vertices and
+    non-zero axes only: every live candidate's own axes and extents; then
+    one obstacle axis (the cheapest test) for every active obstacle of a
+    live candidate without a hit, and every axis of the cheapest active
+    obstacle for a live candidate with one; ``live``/``feasible`` [V, ...]
+    bool, ``cand_verts`` [V, ...] the candidates' distinct vertices,
+    ``pre`` the obstacle bundle; bytes: ``in_bytes`` read, one byte a
+    candidate written."""
+    v = live.shape[0]
+    live, free = live.reshape(v, -1), feasible.reshape(v, -1)
+    k = cand_verts.reshape(v, -1).double()                   # [V, C]
+    active = pre.mask > 0                                    # [V, NO]
+    o_verts = distinct_vertices(pre.ox, pre.oy).double()
+    o_axes = ((pre.oax != 0) | (pre.oay != 0)).sum(dim=-1).double()
+    own = k * (OPS_PER_AXIS + k * OPS_PER_PROJECTION)
+    separated = (active.sum(dim=1, keepdim=True)
+                 * (k * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST))
+    # one overlapping pair: the obstacle's axes on the candidate's
+    # vertices, the candidate's axes on the obstacle's vertices
+    pair = (o_axes[:, None] * (k[..., None] * OPS_PER_PROJECTION
+                               + OPS_PER_AXIS_TEST)
+            + k[..., None] * (o_verts[:, None] * OPS_PER_PROJECTION
+                              + OPS_PER_AXIS_TEST))          # [V, C, NO]
+    overlap = pair.masked_fill(~active[:, None], float("inf")).amin(dim=-1)
+    per_cand = own + separated.where(free, overlap)
+    ops = float(per_cand.where(live, 0.0).sum())
+    return roofline(ops, in_bytes + live.numel())
 
 
 def compare(torch, name, got, want):
@@ -245,15 +336,16 @@ def compare(torch, name, got, want):
 
 def kernel_row(torch, name, fn, plain, cx, cy, pre, bound, src_line):
     """Hold ``fn`` against ``plain`` (exact masks) on all-live inputs, time
-    both and return the kernel's JSON row and the plain mask; ``bound(want)``
-    gives the least time these inputs need and what bounds it."""
+    both and return the kernel's JSON row; ``bound(live, feasible,
+    live_bytes)`` gives the least time these inputs need and what bounds
+    it."""
     want = plain(cx, cy, pre)
     max_abs_err = compare(torch, name, fn(cx, cy, pre), want)
     hit_share = float(want.float().mean())
     print(f"kernel {name}: hit share {hit_share:.4f}", flush=True)
     if not 0.0 < hit_share < 1.0:
         raise AssertionError(f"{name}: degenerate test input")
-    bound_ms, bound_by = bound(want)
+    bound_ms, bound_by = bound(torch.ones_like(want), ~want, 0)
     row = {
         "name": name, "route": "cuda",
         "source": "pdmpc_torch/csrc/collision.cu",
@@ -267,89 +359,106 @@ def kernel_row(torch, name, fn, plain, cx, cy, pre, bound, src_line):
     print(f"kernel {name}: {row['ms']:.5f} ms ({row['event_ms']:.5f} ms a "
           f"call with the host), plain {row['plain_ms']:.4f} ms, bound "
           f"{bound_ms:.6f} ms", flush=True)
-    return row, want
+    return row
 
 
-def live_mask_run(torch, row, fn, plain, cx, cy, pre, n_active, in_bytes):
-    """A crossing kernel's (cx, cy) form with a live mask at the road MPA's
-    share of allowed transitions: held exact, timed, bound over the live
-    candidates."""
-    name = row["name"]
-    gen = torch.Generator(device=cx.device).manual_seed(SEED)
-    live = torch.rand((cx.shape[0], cx.shape[2]), generator=gen,
-                      device=cx.device) < LIVE_SHARE
-    want = plain(cx, cy, pre, live)
-    compare(torch, name + " (live mask)", fn(cx, cy, pre, live), want)
-    bound_ms, _ = crossing_bound(live, want, n_active, cx.shape[1],
-                                 in_bytes + live.numel())
-    row["live_mask"] = {
-        "live_share": float(live.float().mean()),
-        "ms": device_ms(torch, lambda: fn(cx, cy, pre, live)),
-        "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre, live),
-                              reps=10),
-        "bound_ms": bound_ms,
+def live_run(torch, label, fn, plain, live, bound):
+    """``fn(live)`` against ``plain(live)``, exact; the live candidates
+    must be neither all hit nor all free. Returns the live share, the
+    feasible share, both versions' device ms and the bound (over the live
+    candidates)."""
+    want = plain(live)
+    compare(torch, label, fn(live), want)
+    n_live, n_free = int(live.sum()), int(want.sum())
+    if not 0 < n_free < n_live:
+        raise AssertionError(f"{label}: degenerate test input")
+    got = {
+        "live_share": n_live / live.numel(),
+        "feasible_share": n_free / live.numel(),
+        "ms": device_ms(torch, lambda: fn(live)),
+        "plain_ms": device_ms(torch, lambda: plain(live), reps=10),
+        "bound_ms": bound(live, want, live.numel())[0],
     }
-    print(f"kernel {name}: live share {row['live_mask']['live_share']:.4f}: "
-          f"{row['live_mask']['ms']:.5f} ms, plain "
-          f"{row['live_mask']['plain_ms']:.4f} ms, bound {bound_ms:.6f} ms",
+    print(f"kernel {label}: live share {got['live_share']:.4f}, feasible "
+          f"{got['feasible_share']:.4f}: {got['ms']:.5f} ms, plain "
+          f"{got['plain_ms']:.4f} ms, bound {got['bound_ms']:.6f} ms",
           flush=True)
+    return got
+
+
+def random_live(torch, shape, dev):
+    """A live mask of ``shape`` at the road MPA's share of allowed
+    transitions, from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return torch.rand(shape, generator=gen, device=dev) < LIVE_SHARE
 
 
 def check_kernels(torch, coll, dev, extras=True):
-    """Phase 2: each kernel against its plain version, exact masks, on
-    all-live inputs; with ``extras`` the crossing kernels also with a live
+    """Phase 2: each kernel's (cx, cy) form against its plain version,
+    exact masks, on all-live inputs; with ``extras`` also with a live
+    mask, and the SAT kernel's lattice form all live and with a live
     mask."""
     cx, cy, obs, obs_mask, segs, seg_mask = kernel_inputs(torch, dev)
     out_pre = coll.precompute_outline(obs, obs_mask)
     seg_pre = coll.precompute_segments(segs, seg_mask)
-    rows = []
-    for name, pre, n_active, in_bytes, src_line in (
-        ("outline_hits", out_pre, out_pre.edge_ok.sum(dim=(1, 2)),
+    sx, sy, s_obs, s_mask = sat_inputs(torch, dev)
+    sat_pre = coll.precompute_obstacles(s_obs, s_mask)
+    rows = {}
+    for name, (ax, ay), pre, bound_of, in_bytes, src_line in (
+        ("outline_hits", (cx, cy), out_pre,
+         partial(crossing_bound, n_active=out_pre.edge_ok.sum(dim=(1, 2)),
+                 va=VA),
          4 * (cx.numel() * 2 + out_pre.ox.numel() * 3),
          "pdmpc_tpu/ops/pallas_collision.py:530"),
-        ("boundary_hits", seg_pre, seg_pre.mask.sum(dim=1),
+        ("boundary_hits", (cx, cy), seg_pre,
+         partial(crossing_bound, n_active=seg_pre.mask.sum(dim=1), va=VA),
          4 * (cx.numel() * 2 + seg_pre.packed.numel() + seg_pre.mask.numel()),
          "pdmpc_tpu/ops/pallas_collision.py:374"),
+        ("sat_hits", (sx, sy), sat_pre,
+         partial(sat_bound, pre=sat_pre, cand_verts=distinct_vertices(
+             sx.transpose(1, 2), sy.transpose(1, 2))),
+         4 * sx.numel() * 2 + sat_bundle_bytes(sat_pre),
+         "pdmpc_tpu/ops/pallas_collision.py:234"),
     ):
         fn, plain = getattr(coll, name), getattr(coll, name + "_plain")
 
-        def bound(want, n_active=n_active, in_bytes=in_bytes):
-            return crossing_bound(torch.ones_like(want), ~want, n_active,
-                                  cx.shape[1], in_bytes)
+        def bound(live, feasible, live_bytes, bound_of=bound_of,
+                  in_bytes=in_bytes):
+            return bound_of(live, feasible, in_bytes=in_bytes + live_bytes)
 
-        row, _ = kernel_row(torch, name, fn, plain, cx, cy, pre, bound,
-                            src_line)
+        row = kernel_row(torch, name, fn, plain, ax, ay, pre, bound,
+                         src_line)
         if extras:
-            live_mask_run(torch, row, fn, plain, cx, cy, pre, n_active,
-                          in_bytes)
-        rows.append(row)
+            row["live_mask"] = live_run(
+                torch, name + " (live mask)",
+                lambda live: fn(ax, ay, pre, live),
+                lambda live: plain(ax, ay, pre, live),
+                random_live(torch, (ax.shape[0], ax.shape[2]), dev), bound)
+        rows[name] = row
+    if extras:
+        rows["sat_hits"]["lattice"] = sat_lattice_run(torch, coll, dev)
+    return list(rows.values())
 
-    cx, cy, obs, obs_mask = sat_inputs(torch, dev)
-    sat_pre = coll.precompute_obstacles(obs, obs_mask)
-    n_active = sat_pre.mask.sum(dim=1)
-    in_bytes = 4 * (cx.numel() * 2 + sat_pre.ox.numel() * 6
-                    + sat_pre.mask.numel())
 
-    def sat_bound(want):
-        # each candidate's own axes and extents; then one axis (the
-        # cheapest: an obstacle's, VA projections) for every active
-        # obstacle of a candidate without a hit, and every axis of one
-        # pair for a candidate with one
-        hits = want.sum(dim=1)
-        own = C * VA_SAT * (OPS_PER_AXIS + VA_SAT * OPS_PER_PROJECTION)
-        separated = VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST
-        overlap = (VA_SAT * (VO * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST)
-                   + VO * (VA_SAT * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST))
-        ops_ms = float((own + (C - hits) * n_active * separated
-                        + hits * overlap).sum()) / PEAK_F32_OPS * 1e3
-        bytes_ms = (in_bytes + want.numel()) / PEAK_BYTES * 1e3
-        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                       else "bytes")
+def sat_lattice_run(torch, coll, dev):
+    """Phase 2's SAT lattice form (``sat_lattice_inputs``), all live and
+    with a live mask, each held exact against its plain version and
+    timed."""
+    lat, pre = sat_lattice_inputs(torch, coll, dev)
+    shape = (*lat.trim.shape, lat.table.shape[0])
 
-    rows.append(kernel_row(
-        torch, "sat_hits", coll.sat_hits, coll.sat_hits_plain, cx, cy,
-        sat_pre, sat_bound, "pdmpc_tpu/ops/pallas_collision.py:234")[0])
-    return rows
+    def bound(live, feasible, _):
+        return sat_path_bound(lat, live, feasible, pre)
+
+    return {key: live_run(
+                torch, f"sat_hits lattice ({key})",
+                lambda live: coll.sat_hits_lattice(lat, live, pre),
+                lambda live: coll.sat_hits_lattice_plain(lat, live, pre),
+                live, bound)
+            for key, live in (
+                ("all_live", torch.ones(shape, dtype=torch.bool,
+                                        device=dev)),
+                ("live_mask", random_live(torch, shape, dev)))}
 
 
 def vehicle_collisions(poses, length, width):
@@ -452,10 +561,11 @@ def golden_gate(run_experiment, cfg, name):
 
 
 # search-module names of the collision checks that have a plain twin in
-# ops.collision, and the crossing kernels' lattice forms among them
-SWAPPED = KERNELS + ("outline_hits_lattice", "boundary_hits_lattice")
+# ops.collision, and the kernels' lattice forms among them
 LATTICE = {"outline_hits_lattice": "outline_hits",
-           "boundary_hits_lattice": "boundary_hits"}
+           "boundary_hits_lattice": "boundary_hits",
+           "sat_hits_lattice": "sat_hits"}
+SWAPPED = KERNELS + tuple(LATTICE)
 
 
 def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
@@ -522,53 +632,78 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
     return lattice_calls
 
 
-def lattice_bytes(lat, live, pre):
+def lattice_bytes(lat, live, bundle_bytes):
     """Bytes a lattice-form call reads: table, trims, poses, c and s, the
-    live mask and the bundle."""
+    live mask and ``bundle_bytes`` of the bundle."""
     v, b = lat.trim.shape
     return (lat.table.numel() * 4 + v * b * (8 + 3 * 4 + 2 * 4)
-            + live.numel() + sum(t.numel() * t.element_size() for t in pre))
+            + live.numel() + bundle_bytes)
 
 
-def path_shapes(torch, coll, lattice_calls, rows):
-    """Phase 8: every lattice-form call of the road chunk's plan, held bit
-    for bit against its plain version on the same inputs and timed beside
-    it, bound over the live candidates (for the boundary kernel: those
-    the outline test left live). Adds each kernel's per-layer and per-plan
-    numbers to its row."""
-    if not {c[0] for c in lattice_calls} >= {"outline_hits",
-                                              "boundary_hits"}:
-        raise AssertionError("the road chunk made no lattice-form call of "
-                             "both crossing kernels")
-    for name in ("outline_hits", "boundary_hits"):
+def crossing_path_bound(lat, live, feasible, pre, n_active):
+    """The bound of a crossing kernel's lattice-form call, ``n_active``
+    [V] its active segments a vehicle."""
+    return crossing_bound(
+        live, feasible, n_active, lat.table.shape[2],
+        lattice_bytes(lat, live, sum(t.numel() * t.element_size()
+                                     for t in pre)))
+
+
+def sat_path_bound(lat, live, feasible, pre, n_active=None):
+    """The bound of a SAT lattice-form call (the active obstacles come
+    from ``pre``); the candidates' distinct vertices are their table
+    areas'."""
+    table = lat.table
+    cand_verts = distinct_vertices(table[..., 0], table[..., 1])[lat.trim]
+    return sat_bound(live, feasible, cand_verts, pre,
+                     lattice_bytes(lat, live, sat_bundle_bytes(pre)))
+
+
+# per kernel: its active segments or obstacles a vehicle, from its bundle,
+# and the bound of a lattice-form call
+PATH_BOUNDS = {
+    "outline_hits": (lambda pre: pre.edge_ok.sum(dim=(1, 2)),
+                     crossing_path_bound),
+    "boundary_hits": (lambda pre: pre.mask.sum(dim=1), crossing_path_bound),
+    "sat_hits": (lambda pre: pre.mask.sum(dim=1), sat_path_bound),
+}
+
+
+def path_shapes(torch, coll, lattice_calls, rows, names, label):
+    """Phase 8: every lattice-form call of the kernels ``names`` in a
+    recorded plan, held bit for bit against its plain version on the same
+    inputs and timed beside it, bound over the live candidates (for the
+    boundary kernel: those the obstacle test left live). Adds each
+    kernel's per-layer and per-plan numbers to its row."""
+    if not {c[0] for c in lattice_calls} >= set(names):
+        raise AssertionError(f"the {label} made no lattice-form call of "
+                             f"each of {names}")
+    for name in names:
         fn = getattr(coll, name + "_lattice")
         plain = getattr(coll, name + "_lattice_plain")
-        n_active = None
+        active_of, bound_of = PATH_BOUNDS[name]
         layers = []
         for _, layer, lat, live, pre in (c for c in lattice_calls
                                          if c[0] == name):
             want = plain(lat, live, pre)
             compare(torch, f"{name} lattice layer {layer}",
                     fn(lat, live, pre), want)
-            n_active = (pre.edge_ok.sum(dim=(1, 2)) if name == "outline_hits"
-                        else pre.mask.sum(dim=1))
-            bound_ms, bound_by = crossing_bound(
-                live, want, n_active, lat.table.shape[2],
-                lattice_bytes(lat, live, pre))
+            n_active = active_of(pre)
+            bound_ms, bound_by = bound_of(lat, live, want, pre, n_active)
             layers.append({
                 "layer": layer, "candidates": live.numel(),
                 "live": int(live.sum()), "feasible": int(want.sum()),
-                "active_segments": n_active.tolist(),
+                "active": n_active.tolist(),
                 "ms": device_ms(torch, lambda: fn(lat, live, pre)),
                 "plain_ms": device_ms(torch, lambda: plain(lat, live, pre),
                                       reps=10),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
-        path = {"layers": layers}
+        path = {"plan": label, "layers": layers}
         for key in ("ms", "plain_ms", "bound_ms"):
             path[key + "_per_plan"] = sum(x[key] for x in layers)
         rows[name]["path"] = path
-        print(f"path shapes {name}: {len(layers)} layers, "
+        print(f"path shapes {name} ({label}): {len(layers)} layers, "
               f"{path['ms_per_plan']:.5f} ms a plan, plain "
               f"{path['plain_ms_per_plan']:.4f} ms, bound "
               f"{path['bound_ms_per_plan']:.6f} ms; by layer "
@@ -630,11 +765,14 @@ def main() -> int:
     road_calls = plans_with_plain_versions(
         torch, coll, run_experiment, Config(amount=20, T_end=1.0),
         "road chunk")
-    plans_with_plain_versions(torch, coll, run_experiment,
-                              Config(scenario_type=circle, amount=10,
-                                     T_end=3.0), "circle chunk")
-    # ---- 8. the crossing kernels at the road chunk's own shapes ----------
-    path_shapes(torch, coll, road_calls, rows)
+    circle_calls = plans_with_plain_versions(
+        torch, coll, run_experiment,
+        Config(scenario_type=circle, amount=10, T_end=3.0), "circle chunk")
+    # ---- 8. the kernels at the recorded chunks' own shapes ---------------
+    path_shapes(torch, coll, road_calls, rows,
+                ("outline_hits", "boundary_hits"), "road chunk")
+    path_shapes(torch, coll, circle_calls, rows, ("sat_hits",),
+                "circle chunk")
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

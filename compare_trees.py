@@ -2,7 +2,7 @@
 """Time this checkout against another one (say, its parent commit) on the
 card, in turns.
 
-    python3 compare_trees.py OTHER_DIR [--out FILE]
+    python3 compare_trees.py OTHER_DIR [--out FILE] [--kernels-only]
 
 Runs, in the order other, this, this, other, each run a process of its
 own started in that checkout's directory:
@@ -10,9 +10,13 @@ own started in that checkout's directory:
 - kernels: phase 2 of this checkout's ``chip_smoke.py`` (its inputs, its
   exactness check and its timing) on each checkout's kernels, all
   candidates live: per kernel the device ms of a call, the ms of a call
-  with its host part, and the plain version's device ms;
-- steps: each checkout's own ``python -m pdmpc_torch.profile_step``, for
-  the road (``--scenario commonroad``) and the circle.
+  with its host part, and the plain version's device ms; where the
+  checkout's ``ops/collision.py`` has the SAT lattice form (and with it
+  every entry form phase 2 calls), also phase 2's live-mask and
+  lattice-form runs, say against a scratch copy with another lane count;
+- steps (unless ``--kernels-only``): each checkout's own ``python -m
+  pdmpc_torch.profile_step``, for the road (``--scenario commonroad``) and
+  the circle.
 
 Prints one JSON line per run and, last, one JSON object with every run
 (also written to ``--out``).
@@ -44,10 +48,12 @@ def kernels_worker() -> int:
         "chip_smoke_timing", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    rows = smoke.check_kernels(torch, coll, "cuda", extras=False)
+    rows = smoke.check_kernels(torch, coll, "cuda",
+                               extras=hasattr(coll, "sat_hits_lattice"))
     print(json.dumps({row["name"]: {k: row[k] for k in
-                                    ("ms", "event_ms", "plain_ms",
-                                     "bound_ms")} for row in rows}))
+                                    ("ms", "event_ms", "plain_ms", "bound_ms",
+                                     "live_mask", "lattice") if k in row}
+                      for row in rows}))
     return 0
 
 
@@ -65,6 +71,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", nargs="?")
     parser.add_argument("--out", default=None)
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="time the kernels, not the steps")
     parser.add_argument("--kernels-worker", action="store_true",
                         help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -80,7 +88,7 @@ def main(argv=None) -> int:
                          "--kernels-worker"], trees[tree], 600)
         runs.append({"run": "kernels", "tree": tree, **got})
         print(json.dumps(runs[-1]), flush=True)
-    for scenario in SCENARIOS:
+    for scenario in () if args.kernels_only else SCENARIOS:
         for tree in order:
             got = last_json([sys.executable, "-m", "pdmpc_torch.profile_step",
                              "--scenario", scenario], trees[tree], 900)

@@ -4,12 +4,15 @@
 // outline_hits  replaces pdmpc_tpu/ops/pallas_collision.py::_outline_kernel
 //               (reached through outline_hits_pre);
 // boundary_hits replaces pdmpc_tpu/ops/pallas_collision.py::_boundary_kernel
-//               (reached through boundary_hits_pre).
+//               (reached through boundary_hits_pre);
+// sat_hits      replaces pdmpc_tpu/ops/pallas_collision.py::_sat_kernel
+//               (reached through sat_hits_pre).
 //
-// Both decide, per candidate polygon, whether any of its edges crosses any
-// active segment (an obstacle edge or a lanelet-boundary segment), with the
-// tolerant division-free predicate of pdmpc_tpu/ops/search.py
-// (_segment_cross_predicate, SEG_CROSS_TOL = 1e-4) in its XLA form:
+// The first two decide, per candidate polygon, whether any of its edges
+// crosses any active segment (an obstacle edge or a lanelet-boundary
+// segment), with the tolerant division-free predicate of
+// pdmpc_tpu/ops/search.py (_segment_cross_predicate, SEG_CROSS_TOL =
+// 1e-4) in its XLA form:
 //   r = a2 - a1, s = b2 - b1, qp = b1 - a1,
 //   d = r x s, A = qp x s, B = qp x r.
 // (The Pallas kernels build A as b1 x s - a1 x s; the CPU goldens were made
@@ -17,7 +20,8 @@
 // every product is rounded on its own, as in the plain PyTorch versions, so
 // kernel and plain version agree bit for bit.
 //
-// Each has two entry forms that share one scan (hits_kernel):
+// Each kernel has two entry forms that share one scan (hits_kernel for the
+// crossing kernels, sat_hits_kernel for SAT), over two candidate sources:
 // - the (cx, cy) form reads candidate vertices [V, VA, C] from memory;
 // - the lattice form builds search layer candidates in registers: candidate
 //   b * n + j of vehicle v is the area table[trim[v, b], j] placed at the
@@ -28,8 +32,9 @@
 // the search) and scans no candidate that is not live; without one it
 // writes the hit mask.
 //
-// What bounds them on an H100: operations (candidate edges x active
-// segments, ~25 f32 operations a pair), not the few hundred KB of inputs.
+// What bounds the crossing kernels on an H100: operations (candidate edges
+// x active segments, ~25 f32 operations a pair), not the few hundred KB of
+// inputs.
 // Design: a resident block (grid sized to the SMs) compacts its vehicle's
 // active segments (masked obstacles and degenerate padded edges dropped:
 // both can never cross) into shared memory once, in index order by warp
@@ -40,23 +45,38 @@
 // same number of rounds). No bounding-box
 // culling: it is not exact inside the tolerance band.
 //
-// sat_hits replaces pdmpc_tpu/ops/pallas_collision.py::_sat_kernel (reached
-// through sat_hits_pre): per candidate convex polygon, whether it overlaps
-// an active convex obstacle, i.e. no edge normal of either polygon separates
+// sat_hits decides, per candidate convex polygon, whether it overlaps an
+// active convex obstacle, i.e. no edge normal of either polygon separates
 // them. It follows the XLA form of pdmpc_tpu/ops/search.py
 // (_sat_separates_batch), not the Pallas kernel's unnormalized axes:
 //   axis = (-ey, ex) / max(sqrt(fma(ay, ay, ax * ax)), 1e-9),
 //   projection = fma(ay, y, ax * x),
 //   separated on an axis iff min(pa) - max(pb) > 0 or min(pb) - max(pa) > 0,
 // each multiply-add fused with __fmaf_rn, the square root and the division
-// rounded to nearest (pdmpc_torch/ops/collision.py says why). One thread
-// per candidate: its vertices, normalized axes and own extents in
-// registers; the vehicle's active obstacles (vertices, normalized axes and
-// own-axis extents from the bundle) compacted into shared memory; per
-// obstacle the candidate's axes first, then the obstacle's, leaving at the
-// first separating axis, and the candidate leaves at its first overlap.
-// Zero axes (repeated vertices) project everything to 0 and never
-// separate: skipped.
+// rounded to nearest (pdmpc_torch/ops/collision.py says why).
+//
+// What bounds it on an H100: bytes, by the count of the least work (a
+// separated pair needs a single axis, so a typical mask needs fewer
+// operations than reading its inputs once takes, ~0.2 us); in fact
+// latency, since a candidate meets its 10 to 30 active obstacles one after
+// another and a search layer has few live candidates. The design: resident
+// blocks stage the vehicle's active obstacles once, in index order by warp
+// ballots (a half warp an obstacle), as structure of arrays with the
+// obstacle slot fastest (lane l reads slot l: no bank conflicts); the stage
+// drops exactly what cannot change a result, i.e. vertices equal to their
+// predecessor (the padding up to VO repeats the last one; they leave every
+// extent as it is) and zero axes (they never separate), and nothing else
+// (the wrap-around axis of a padded obstacle, last repeat -> vertex 0, sits
+// at index VO - 1 and is kept; no bounding-box culling: not exact on
+// touching polygons). Eight lanes take one candidate, four candidates a
+// warp: every lane builds the candidate's vertices in registers, lane i <
+// VA computes its axis i and extents and the group exchanges them by
+// shuffles; lane l tests staged obstacles l, l + 8, ..., each on the
+// obstacle's axes first (VA projections an axis, its own extents come from
+// the bundle), then on the candidate's (an obstacle's distinct vertices an
+// axis), leaving at the first separating axis; the group votes after each
+// round and leaves at its first overlap (every lane runs the same number
+// of rounds).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -279,12 +299,12 @@ int sm_count(int dev) {
   return count[dev];
 }
 
-// Blocks of hits_kernel<Segs, Cands> resident on one SM of device `dev` with
-// `smem` bytes of stage each, cached per (device, stage size): a search
-// stages a handful of sizes.
-template <class Segs, class Cands>
-int blocks_per_sm(int dev, size_t smem) {
+// Blocks of `kernel` resident on one SM of device `dev` with `smem` bytes
+// of stage each, cached per (kernel, device, stage size): a search stages
+// a handful of sizes.
+int blocks_per_sm(const void* kernel, int dev, size_t smem) {
   struct Entry {
+    const void* kernel;
     int dev;
     size_t smem;
     int blocks;
@@ -295,30 +315,41 @@ int blocks_per_sm(int dev, size_t smem) {
   static std::mutex lock;
   std::lock_guard<std::mutex> guard(lock);
   for (int i = 0; i < n_cached; ++i) {
-    if (cache[i].dev == dev && cache[i].smem == smem) return cache[i].blocks;
+    if (cache[i].kernel == kernel && cache[i].dev == dev &&
+        cache[i].smem == smem) {
+      return cache[i].blocks;
+    }
   }
   int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, hits_kernel<Segs, Cands>, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                smem);
   if (blocks < 1) blocks = 1;
-  if (n_cached < kEntries) cache[n_cached++] = Entry{dev, smem, blocks};
+  if (n_cached < kEntries) {
+    cache[n_cached++] = Entry{kernel, dev, smem, blocks};
+  }
   return blocks;
 }
 
-// Launch hits_kernel<Segs, Cands> with a grid of the blocks that stay
-// resident on the card at this stage size, split over the V vehicles, or
-// fewer when the candidates need fewer.
+// Grid (blocks, V) of a kernel that takes `groups` candidates a block at a
+// time: the blocks that stay resident on the card at this stage size, split
+// over the V vehicles, or fewer when the candidates need fewer.
+dim3 resident_grid(const void* kernel, size_t smem, int groups, int v,
+                   int c_total) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int need = (c_total + groups - 1) / groups;
+  int resident = sm_count(dev) * blocks_per_sm(kernel, dev, smem) / v;
+  if (resident < 1) resident = 1;
+  return dim3(need < resident ? need : resident, v);
+}
+
+// Launch hits_kernel<Segs, Cands> on a resident grid.
 template <class Segs, class Cands>
 int launch(const Segs& segs, const Cands& cands, const uint8_t* live,
            uint8_t* out, int v, int c_total, void* stream) {
-  int dev = 0;
-  cudaGetDevice(&dev);
   const size_t smem = (size_t)segs.size() * sizeof(Seg);
-  constexpr int kGroups = kThreads / kLanes;
-  const int need = (c_total + kGroups - 1) / kGroups;
-  int resident = sm_count(dev) * blocks_per_sm<Segs, Cands>(dev, smem) / v;
-  if (resident < 1) resident = 1;
-  const dim3 grid(need < resident ? need : resident, v);
+  const dim3 grid = resident_grid((const void*)hits_kernel<Segs, Cands>,
+                                  smem, kThreads / kLanes, v, c_total);
   hits_kernel<Segs, Cands><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       segs, cands, live, out, c_total);
   return (int)cudaGetLastError();
@@ -339,122 +370,251 @@ __device__ __forceinline__ float project(float ax, float ay, float x,
   return __fmaf_rn(ay, y, __fmul_rn(ax, x));
 }
 
-// Stage rows per active obstacle in shared memory: x, y, ax, ay, mn, mx,
-// each `vo` floats.
-constexpr int kSatRows = 6;
+// Lanes a candidate in the SAT scan. Of 8, 16 and 32 lanes, 8 was the
+// fastest on the H100, all live, with a live mask and in the lattice form
+// (PERF.md, Findings): the candidate's own axes and the votes are shared
+// by four candidates a warp, and the 10 to 30 active obstacles of a
+// vehicle take a few rounds of 8.
+constexpr int kSatLanes = 8;
+static_assert(kSatLanes == 8 || kSatLanes == 16 || kSatLanes == 32,
+              "a power of two that divides a warp");
+static_assert(kSatLanes >= kMaxVa, "a lane for each candidate axis");
+// Most vertices an obstacle of the SAT bundle has: a half warp stages one.
+constexpr int kSatMaxVo = 16;
 
-__global__ void sat_hits_kernel(
-    const float* __restrict__ cx, const float* __restrict__ cy,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oax, const float* __restrict__ oay,
-    const float* __restrict__ omn, const float* __restrict__ omx,
-    const int32_t* __restrict__ mask, uint8_t* __restrict__ out, int va,
-    int c_total, int n_obs, int vo) {
-  extern __shared__ float stage[];  // [n_active][kSatRows][vo], then ids
-  int* active_ids = reinterpret_cast<int*>(stage + n_obs * kSatRows * vo);
-  __shared__ int n_active;
+// SAT obstacle bundle: ox, oy, oax, oay, omn, omx [V, NO, VO] f32 (vertex
+// k, the normalized normal of edge k -> k+1 and the obstacle's own extents
+// on it); mask [V, NO] i32.
+struct SatObstacles {
+  const float* ox;
+  const float* oy;
+  const float* oax;
+  const float* oay;
+  const float* omn;
+  const float* omx;
+  const int32_t* mask;
+  int n_obs, vo;
+
+  // Bytes of a block's stage: six fields of NO x VO floats, then the
+  // vertex count, axis count and index of each staged obstacle.
+  __host__ __device__ size_t stage_bytes() const {
+    return (size_t)n_obs * (6 * vo * sizeof(float) + 3 * sizeof(int));
+  }
+};
+
+// Grid (blocks, V), kThreads threads, obs.stage_bytes() of dynamic shared
+// memory. live may be null (every candidate live, out = hit); else out =
+// live & ~hit. live and out may be one buffer.
+template <class Cands>
+__global__ void __launch_bounds__(kThreads)
+    sat_hits_kernel(SatObstacles obs, Cands cands, const uint8_t* live,
+                    uint8_t* out, int c_total) {
+  // stage: field[k * cap + slot], slot fastest, for k < the slot's count
+  extern __shared__ float stage[];
+  __shared__ int warp_count[kWarps];
+  const int cap = obs.n_obs;
+  const int vo = obs.vo;
+  float* svx = stage;
+  float* svy = svx + cap * vo;
+  float* sax = svy + cap * vo;
+  float* say = sax + cap * vo;
+  float* smn = say + cap * vo;
+  float* smx = smn + cap * vo;
+  int* n_verts = reinterpret_cast<int*>(smx + cap * vo);
+  int* n_axes = n_verts + cap;
+  int* ids = n_axes + cap;
   const int v = blockIdx.y;
-  if (threadIdx.x == 0) n_active = 0;
-  __syncthreads();
-  for (int o = threadIdx.x; o < n_obs; o += blockDim.x) {
-    if (mask[(size_t)v * n_obs + o] > 0) {
-      active_ids[atomicAdd(&n_active, 1)] = o;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // the vehicle's active obstacles, in index order
+  int n_act = 0;
+  for (int base = 0; base < cap; base += kThreads) {
+    const int o = base + threadIdx.x;
+    const bool ok = o < cap && obs.mask[(size_t)v * cap + o] > 0;
+    const unsigned m = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) warp_count[warp] = __popc(m);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int cnt = warp_count[w];
+      before += (w < warp) ? cnt : 0;
+      total += cnt;
     }
+    if (ok) ids[n_act + before + __popc(m & ((1u << lane) - 1u))] = o;
+    n_act += total;
+    __syncthreads();
   }
-  __syncthreads();
-  const int n_act = n_active;
-  const float* fields[kSatRows] = {ox, oy, oax, oay, omn, omx};
-  for (int e = threadIdx.x; e < n_act * kSatRows * vo; e += blockDim.x) {
-    const int a = e / (kSatRows * vo);
-    const int r = (e / vo) % kSatRows;
-    const int k = e % vo;
-    stage[e] = fields[r][((size_t)v * n_obs + active_ids[a]) * vo + k];
+
+  // their data, a half warp an obstacle (lane k: vertex k and axis k),
+  // without repeated vertices and zero axes
+  const int k = lane & 15;
+  const int half = lane & 16;
+  for (int a0 = 2 * warp; a0 < n_act; a0 += 2 * kWarps) {
+    const int a = a0 + (half >> 4);
+    const bool in = a < n_act && k < vo;
+    float x = 0.0f, y = 0.0f, ax = 0.0f, ay = 0.0f, mn = 0.0f, mx = 0.0f;
+    if (in) {
+      const size_t at = ((size_t)v * cap + ids[a]) * vo + k;
+      x = obs.ox[at];
+      y = obs.oy[at];
+      ax = obs.oax[at];
+      ay = obs.oay[at];
+      mn = obs.omn[at];
+      mx = obs.omx[at];
+    }
+    const float x_prev = __shfl_up_sync(0xffffffffu, x, 1, 16);
+    const float y_prev = __shfl_up_sync(0xffffffffu, y, 1, 16);
+    const bool vertex = in && (k == 0 || x != x_prev || y != y_prev);
+    const bool axis = in && (ax != 0.0f || ay != 0.0f);
+    const unsigned below = (1u << k) - 1u;
+    const unsigned vs =
+        (__ballot_sync(0xffffffffu, vertex) >> half) & 0xffffu;
+    const unsigned as =
+        (__ballot_sync(0xffffffffu, axis) >> half) & 0xffffu;
+    if (vertex) {
+      const int at = __popc(vs & below) * cap + a;
+      svx[at] = x;
+      svy[at] = y;
+    }
+    if (axis) {
+      const int at = __popc(as & below) * cap + a;
+      sax[at] = ax;
+      say[at] = ay;
+      smn[at] = mn;
+      smx[at] = mx;
+    }
+    if (k == 0 && a < n_act) {
+      n_verts[a] = __popc(vs);
+      n_axes[a] = __popc(as);
+    }
   }
   __syncthreads();
 
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= c_total) return;
-  float px[kMaxVa], py[kMaxVa], nax[kMaxVa], nay[kMaxVa], cmn[kMaxVa],
-      cmx[kMaxVa];
-  const size_t base = (size_t)v * va * c_total + c;
-#pragma unroll
-  for (int i = 0; i < kMaxVa; ++i) {
-    if (i < va) {
-      px[i] = cx[base + (size_t)i * c_total];
-      py[i] = cy[base + (size_t)i * c_total];
+  // kSatLanes lanes (a group) a candidate, grid-stride over candidates
+  constexpr int kGroups = kThreads / kSatLanes;
+  const int g_lane = threadIdx.x % kSatLanes;
+  const unsigned group_mask = (0xffffffffu >> (32 - kSatLanes))
+                              << (lane - g_lane);
+  const int rounds = (n_act + kSatLanes - 1) / kSatLanes;
+  const int va = cands.va;
+  const size_t row = (size_t)v * c_total;
+  for (int c = blockIdx.x * kGroups + threadIdx.x / kSatLanes; c < c_total;
+       c += gridDim.x * kGroups) {
+    if (live != nullptr && live[row + c] == 0) {
+      if (g_lane == 0) out[row + c] = 0;
+      continue;
     }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxVa; ++i) {
-    if (i < va) {
-      const int j = (i + 1 == va) ? 0 : i + 1;
-      const float ax = -(py[j] - py[i]);
-      const float ay = px[j] - px[i];
-      const float norm =
-          fmaxf(__fsqrt_rn(__fmaf_rn(ay, ay, __fmul_rn(ax, ax))), 1e-9f);
-      nax[i] = __fdiv_rn(ax, norm);
-      nay[i] = __fdiv_rn(ay, norm);
-      float mn = INFINITY, mx = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < kMaxVa; ++w) {
-        if (w < va) {
-          const float p = project(nax[i], nay[i], px[w], py[w]);
-          mn = fminf(mn, p);
-          mx = fmaxf(mx, p);
-        }
-      }
-      cmn[i] = mn;
-      cmx[i] = mx;
-    }
-  }
-
-  bool hit = false;
-  for (int a = 0; a < n_act && !hit; ++a) {
-    const float* sx = stage + a * kSatRows * vo;
-    const float* sy = sx + vo;
-    const float* sax = sy + vo;
-    const float* say = sax + vo;
-    const float* smn = say + vo;
-    const float* smx = smn + vo;
-    bool sep = false;
-    // obstacle vertices on the candidate's axes
+    float px[kMaxVa], py[kMaxVa], nax[kMaxVa], nay[kMaxVa], cmn[kMaxVa],
+        cmx[kMaxVa];
+    cands.get(v, c, px, py);
+    // the candidate's normalized axes and extents: lane i < VA of the
+    // group computes axis i (edge i -> i + 1), then every lane takes all
+    // of them by shuffles
+    float x0 = px[0], y0 = py[0], x1 = px[0], y1 = py[0];
 #pragma unroll
     for (int i = 0; i < kMaxVa; ++i) {
-      if (sep || i >= va || (nax[i] == 0.0f && nay[i] == 0.0f)) continue;
-      float mn = INFINITY, mx = -INFINITY;
-      for (int w = 0; w < vo; ++w) {
-        const float p = project(nax[i], nay[i], sx[w], sy[w]);
-        mn = fminf(mn, p);
-        mx = fmaxf(mx, p);
+      const int i1 = (i + 1) % kMaxVa;
+      const bool wrap = i + 1 >= va;
+      if (i == g_lane) {
+        x0 = px[i];
+        y0 = py[i];
+        x1 = wrap ? px[0] : px[i1];
+        y1 = wrap ? py[0] : py[i1];
       }
-      sep = (cmn[i] - mx > 0.0f) || (mn - cmx[i] > 0.0f);
     }
-    // candidate vertices on the obstacle's axes
-    for (int k = 0; k < vo && !sep; ++k) {
-      const float ax = sax[k], ay = say[k];
-      if (ax == 0.0f && ay == 0.0f) continue;
-      float mn = INFINITY, mx = -INFINITY;
+    {
+      const float ax = -(y1 - y0);
+      const float ay = x1 - x0;
+      const float norm =
+          fmaxf(__fsqrt_rn(__fmaf_rn(ay, ay, __fmul_rn(ax, ax))), 1e-9f);
+      const float my_ax = __fdiv_rn(ax, norm);
+      const float my_ay = __fdiv_rn(ay, norm);
+      float my_mn = INFINITY, my_mx = -INFINITY;
 #pragma unroll
       for (int w = 0; w < kMaxVa; ++w) {
         if (w < va) {
-          const float p = project(ax, ay, px[w], py[w]);
-          mn = fminf(mn, p);
-          mx = fmaxf(mx, p);
+          const float p = project(my_ax, my_ay, px[w], py[w]);
+          my_mn = fminf(my_mn, p);
+          my_mx = fmaxf(my_mx, p);
         }
       }
-      sep = (mn - smx[k] > 0.0f) || (smn[k] - mx > 0.0f);
+#pragma unroll
+      for (int i = 0; i < kMaxVa; ++i) {
+        if (i < va) {
+          nax[i] = __shfl_sync(group_mask, my_ax, i, kSatLanes);
+          nay[i] = __shfl_sync(group_mask, my_ay, i, kSatLanes);
+          cmn[i] = __shfl_sync(group_mask, my_mn, i, kSatLanes);
+          cmx[i] = __shfl_sync(group_mask, my_mx, i, kSatLanes);
+        }
+      }
     }
-    hit = !sep;
+    bool hit = false;
+    for (int r = 0; r < rounds; ++r) {
+      const int a = r * kSatLanes + g_lane;
+      bool sep = true;
+      if (a < n_act) {
+        // candidate vertices on the obstacle's axes
+        sep = false;
+        const int na = n_axes[a];
+        for (int j = 0; j < na && !sep; ++j) {
+          const float ax = sax[j * cap + a], ay = say[j * cap + a];
+          float mn = INFINITY, mx = -INFINITY;
+#pragma unroll
+          for (int w = 0; w < kMaxVa; ++w) {
+            if (w < va) {
+              const float p = project(ax, ay, px[w], py[w]);
+              mn = fminf(mn, p);
+              mx = fmaxf(mx, p);
+            }
+          }
+          sep = (mn - smx[j * cap + a] > 0.0f) ||
+                (smn[j * cap + a] - mx > 0.0f);
+        }
+        // obstacle vertices on the candidate's axes
+        const int nv = n_verts[a];
+#pragma unroll
+        for (int i = 0; i < kMaxVa; ++i) {
+          if (sep || i >= va || (nax[i] == 0.0f && nay[i] == 0.0f)) continue;
+          float mn = INFINITY, mx = -INFINITY;
+          for (int w = 0; w < nv; ++w) {
+            const float p =
+                project(nax[i], nay[i], svx[w * cap + a], svy[w * cap + a]);
+            mn = fminf(mn, p);
+            mx = fmaxf(mx, p);
+          }
+          sep = (cmn[i] - mx > 0.0f) || (mn - cmx[i] > 0.0f);
+        }
+      }
+      if (__any_sync(group_mask, !sep)) {
+        hit = true;
+        break;
+      }
+    }
+    if (g_lane == 0) out[row + c] = (live != nullptr) ? !hit : hit;
   }
-  out[(size_t)v * c_total + c] = hit ? 1 : 0;
+}
+
+// Launch sat_hits_kernel<Cands> on a resident grid.
+template <class Cands>
+int launch_sat(const SatObstacles& obs, const Cands& cands,
+               const uint8_t* live, uint8_t* out, int v, int c_total,
+               void* stream) {
+  const size_t smem = obs.stage_bytes();
+  const dim3 grid = resident_grid((const void*)sat_hits_kernel<Cands>, smem,
+                                  kThreads / kSatLanes, v, c_total);
+  sat_hits_kernel<Cands><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      obs, cands, live, out, c_total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Common tail of the four crossing entries: live [V, C] u8 or null; out
-// [V, C] u8. Each returns the cudaError_t of the launch.
+// Common tail of every entry: live [V, C] u8 or null; out [V, C] u8. Each
+// returns the cudaError_t of the launch.
 
 // cx, cy: [V, VA, C] f32; ox, oy: [V, NO, VO] f32; edge_ok: [V, NO, VO] i32.
 int outline_hits(const float* cx, const float* cy, const float* ox,
@@ -507,19 +667,36 @@ int boundary_hits_lattice(const float* table, int n, int va,
                 live, out, v, b * n, stream);
 }
 
-// cx, cy: [V, VA, C] f32; ox, oy, oax, oay, omn, omx: [V, NO, VO] f32;
-// mask: [V, NO] i32; out: [V, C] u8. Returns the cudaError_t of the launch.
+// cx, cy: [V, VA, C] f32; ox, oy, oax, oay, omn, omx: [V, NO, VO] f32
+// with VO <= 16; mask: [V, NO] i32; live, out as above.
 int sat_hits(const float* cx, const float* cy, const float* ox,
              const float* oy, const float* oax, const float* oay,
              const float* omn, const float* omx, const int32_t* mask,
-             uint8_t* out, int v, int va, int c, int n_obs, int vo,
-             void* stream) {
-  const dim3 grid((c + kThreads - 1) / kThreads, v);
-  const size_t smem = (size_t)n_obs * (kSatRows * vo * sizeof(float) +
-                                       sizeof(int));
-  sat_hits_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      cx, cy, ox, oy, oax, oay, omn, omx, mask, out, va, c, n_obs, vo);
-  return (int)cudaGetLastError();
+             const uint8_t* live, uint8_t* out, int v, int va, int c,
+             int n_obs, int vo, void* stream) {
+  if (vo > kSatMaxVo) return (int)cudaErrorInvalidValue;
+  return launch_sat(
+      SatObstacles{ox, oy, oax, oay, omn, omx, mask, n_obs, vo},
+      PolyCands{cx, cy, va, c}, live, out, v, c, stream);
+}
+
+// The lattice form of sat_hits; lattice arguments as outline_hits_lattice,
+// obstacles as sat_hits.
+int sat_hits_lattice(const float* table, int n, int va, const int64_t* trim,
+                     long long trim_sv, long long trim_sb, const float* pose,
+                     long long pose_sv, long long pose_sb,
+                     const float* cos_yaw, const float* sin_yaw,
+                     long long cs_sv, long long cs_sb, const float* ox,
+                     const float* oy, const float* oax, const float* oay,
+                     const float* omn, const float* omx,
+                     const int32_t* mask, const uint8_t* live, uint8_t* out,
+                     int v, int b, int n_obs, int vo, void* stream) {
+  if (vo > kSatMaxVo) return (int)cudaErrorInvalidValue;
+  return launch_sat(
+      SatObstacles{ox, oy, oax, oay, omn, omx, mask, n_obs, vo},
+      lattice(table, n, va, trim, trim_sv, trim_sb, pose, pose_sv, pose_sb,
+              cos_yaw, sin_yaw, cs_sv, cs_sb),
+      live, out, v, b * n, stream);
 }
 
 }  // extern "C"

@@ -16,30 +16,36 @@ Layout: candidates arrive vertex-major per vehicle, ``cx, cy [V, VA, C]``
 (C = beam x trims), so one launch covers a whole planning chunk of V
 vehicles. Obstacle bundles carry the same leading vehicle dim.
 
-Two entry forms for the crossing kernels, one scan:
+Two entry forms for each kernel, one scan:
 
-- ``outline_hits(cx, cy, pre, live=None)`` / ``boundary_hits(...)`` take
-  candidate vertices; without ``live`` they return the hit mask, with it
-  ``live & ~hit``;
+- ``outline_hits(cx, cy, pre, live=None)`` / ``boundary_hits(...)`` /
+  ``sat_hits(...)`` take candidate vertices; without ``live`` they return
+  the hit mask, with it ``live & ~hit``;
 - ``outline_hits_lattice(lattice, live, pre)`` /
-  ``boundary_hits_lattice(...)`` take one search layer's ``Lattice``
-  (area table, parent trims, poses and yaw cosines and sines) and its live
-  mask ``[V, B, n]``, build the candidates in the kernel and return the
-  feasibility mask ``live & ~hit``. The search feeds the outline result to
-  the boundary kernel as its live mask.
+  ``boundary_hits_lattice(...)`` / ``sat_hits_lattice(...)`` take one
+  search layer's ``Lattice`` (area table, parent trims, poses and yaw
+  cosines and sines) and its live mask ``[V, B, n]``, build the
+  candidates in the kernel and return the feasibility mask
+  ``live & ~hit``. The search feeds the obstacle check's result (outline
+  or SAT) to the boundary kernel as its live mask.
 
 What bounds the crossing kernels on an H100: operations, not bytes. Each
 live candidate edge is tested against every active segment (VA x active
 segments pairs, ~25 f32 ops each) while the inputs are a few hundred KB.
-The design (csrc/collision.cu says more): a grid of resident blocks, each
-compacting its vehicle's active segments into shared memory once; a warp
-a candidate, each lane a strided share of the segments, the warp leaving
-at its first hit; candidates that are not live are not scanned. Skipping
-masked obstacles, degenerate padded edges and dead candidates is exact;
-bounding-box culling is not (inside the tolerance band) and is left out.
-The SAT kernel keeps one thread per candidate; there a separated pair
-needs a single axis, so the least work of a typical mask is below the time
-to read its candidates once, and bytes bound it.
+The SAT kernel: bytes, by the count of the least work (a separated pair
+needs a single axis, so a typical mask needs less than the time to read
+its inputs once); in practice latency, since a candidate meets its active
+obstacles one after another. The design of all three (csrc/collision.cu
+says more): a grid of resident blocks, each compacting its vehicle's
+active segments or obstacles into shared memory once; a group of lanes a
+candidate (a warp for crossing, 8 lanes for SAT), each lane a strided
+share of the segments or obstacles, the group leaving at its first hit;
+candidates that are not live are not scanned. Skipping masked obstacles,
+degenerate padded edges, repeated obstacle vertices, zero SAT axes and
+dead candidates is exact; bounding-box culling is not (inside the
+tolerance band, or on touching polygons) and is left out. The SAT scan
+tests an obstacle's axes (VA projections each) before the candidate's
+(one projection per distinct obstacle vertex).
 
 Numerics: kernels and plain versions compute the crossing predicate in
 the XLA form of ``pdmpc_tpu.ops.search.candidate_boundary_violations``
@@ -99,8 +105,11 @@ OBS_GROUP = 32
 SAT_CHUNK = 8
 # Most candidate vertices one kernel thread holds in registers.
 MAX_VA = 8
+# Most vertices of an obstacle the SAT kernel stages (a half warp each).
+MAX_VO = 16
 # Shared-memory budget of one block's stage: 48 KB of segments (4 floats
-# each) or of obstacle vertices (6 floats each: vertex, axis, extents).
+# each) or of obstacles (6 floats a vertex: vertex, axis, extents; 3 ints
+# an obstacle).
 _SMEM_BYTES = 48 * 1024
 _MAX_STAGED_EDGES = _SMEM_BYTES // 16
 
@@ -151,10 +160,12 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         lib.boundary_hits.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.boundary_hits_lattice.argtypes = (lattice + [ptr] * 4
                                               + [i32] * 3 + [ptr])
-        lib.sat_hits.argtypes = [ptr] * 9 + [ptr] + [i32] * 5 + [ptr]
+        lib.sat_hits.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
+        lib.sat_hits_lattice.argtypes = (lattice + [ptr] * 9 + [i32] * 4
+                                         + [ptr])
         for fn in (lib.outline_hits, lib.outline_hits_lattice,
                    lib.boundary_hits, lib.boundary_hits_lattice,
-                   lib.sat_hits):
+                   lib.sat_hits, lib.sat_hits_lattice):
             fn.restype = i32
         _lib = lib
         return lib
@@ -395,10 +406,12 @@ def boundary_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
                                ).reshape(live.shape)
 
 
-def sat_hits_plain(cx, cy, pre: ObstaclesPre) -> torch.Tensor:
+def sat_hits_plain(cx, cy, pre: ObstaclesPre,
+                   live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] bool: a candidate polygon (cx, cy [V, VA, C]) overlaps an
-    active obstacle, i.e. no normal of either polygon separates them
-    (obstacles taken SAT_CHUNK at a time to bound memory)."""
+    active obstacle, i.e. no normal of either polygon separates them (with
+    ``live`` [V, C]: ``live & ~hit``); obstacles taken SAT_CHUNK at a time
+    to bound memory."""
     v, _, c = cx.shape
     no = pre.ox.shape[1]
     nax, nay = sat_axes(cx, cy, 1)                           # [V, VA, C]
@@ -422,7 +435,16 @@ def sat_hits_plain(cx, cy, pre: ObstaclesPre) -> torch.Tensor:
                 | (omn[:, None] - pa.amax(dim=1) > 0)).any(dim=-1)
         active = pre.mask[:, None, o:o + SAT_CHUNK] > 0      # [V, 1, G]
         hit |= (~sep & active).any(dim=-1)
-    return hit
+    return hit if live is None else live.bool() & ~hit
+
+
+def sat_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
+                           pre: ObstaclesPre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of the lattice's convex
+    candidates against the SAT obstacle bundle."""
+    return sat_hits_plain(*candidate_polys(*lat), pre,
+                          live.reshape(live.shape[0], -1)
+                          ).reshape(live.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -438,14 +460,6 @@ def _check_candidates(cx, cy):
         raise TypeError("candidates must be float32")
     if cx.shape[1] > MAX_VA:
         raise ValueError(f"at most {MAX_VA} candidate vertices")
-
-
-def _check_operand(t, name, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous on {device}")
 
 
 _LIVE_DTYPES = (torch.bool, torch.uint8)
@@ -563,6 +577,21 @@ def _segment_ptrs(pre: SegmentsPre, v, dev):
     return (pre.packed.data_ptr(), pre.mask.data_ptr()), s_pad
 
 
+def _obstacle_ptrs(pre: ObstaclesPre, v, dev):
+    """Checks of a SAT obstacle bundle for the kernel; returns its
+    pointers (the bundle's field order) and (NO, VO)."""
+    no, vo = pre.ox.shape[1:]
+    if vo > MAX_VO:
+        raise ValueError(f"at most {MAX_VO} obstacle vertices, got {vo}")
+    if no * (6 * vo + 3) * 4 > _SMEM_BYTES:
+        raise ValueError(f"{no} obstacles of {vo} vertices exceed the "
+                         f"shared-memory stage of {_SMEM_BYTES} bytes")
+    _check(dev, tuple((name, getattr(pre, name), (v, no, vo), torch.float32,
+                       True) for name in ObstaclesPre._fields[:6])
+           + (("mask", pre.mask, (v, no), torch.int32, True),))
+    return tuple(t.data_ptr() for t in pre), no, vo
+
+
 def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
                  live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] outline-crossing mask of candidates cx, cy [V, VA, C]
@@ -649,38 +678,44 @@ def boundary_hits_lattice(lat: Lattice, live: torch.Tensor,
     return out
 
 
-def sat_hits(cx: torch.Tensor, cy: torch.Tensor,
-             pre: ObstaclesPre) -> torch.Tensor:
+def sat_hits(cx: torch.Tensor, cy: torch.Tensor, pre: ObstaclesPre,
+             live: torch.Tensor | None = None) -> torch.Tensor:
     """[V, C] SAT overlap mask of candidates cx, cy [V, VA, C] against the
-    obstacle bundle ``pre`` (leading dim V)."""
-    _check_candidates(cx, cy)
-    if cx.device.type == "cpu":
-        return sat_hits_plain(cx, cy, pre)
-    v, va, c = cx.shape
-    no, vo = pre.ox.shape[1:]
-    _check_operand(cx, "cx", (v, va, c), torch.float32, cx.device)
-    _check_operand(cy, "cy", (v, va, c), torch.float32, cx.device)
-    for name in ("ox", "oy", "oax", "oay", "omn", "omx"):
-        _check_operand(getattr(pre, name), name, (v, no, vo), torch.float32,
-                       cx.device)
-    _check_operand(pre.mask, "mask", (v, no), torch.int32, cx.device)
-    if no * (6 * vo + 1) * 4 > _SMEM_BYTES:
-        raise ValueError(f"{no} obstacles of {vo} vertices exceed the "
-                         f"shared-memory stage of {_SMEM_BYTES} bytes")
+    obstacle bundle ``pre`` (leading dim V); with ``live`` [V, C] (bool or
+    uint8) the feasibility ``live & ~hit`` instead, and candidates that
+    are not live are not scanned."""
+    dev, v, va, c = _candidates(cx, cy, live)
+    if dev < 0:
+        return sat_hits_plain(cx, cy, pre, live)
+    ptrs, no, vo = _obstacle_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    lib = build_kernels()
-    err = lib.sat_hits(
-        cx.data_ptr(), cy.data_ptr(), pre.ox.data_ptr(), pre.oy.data_ptr(),
-        pre.oax.data_ptr(), pre.oay.data_ptr(), pre.omn.data_ptr(),
-        pre.omx.data_ptr(), pre.mask.data_ptr(), out.data_ptr(), v, va, c,
-        no, vo, torch.cuda.current_stream(cx.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"sat_hits kernel launch failed: CUDA error {err}")
-    sat_hits.launches += 1
+    _launched(build_kernels().sat_hits(
+        cx.data_ptr(), cy.data_ptr(), *ptrs,
+        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
+        no, vo, _stream(dev)), sat_hits)
     return out
 
 
 sat_hits.launches = 0
+
+
+def sat_hits_lattice(lat: Lattice, live: torch.Tensor,
+                     pre: ObstaclesPre) -> torch.Tensor:
+    """[V, B, n] bool feasibility ``live & ~hit`` of one search layer's
+    convex candidates (built in the kernel from ``lat``) against the SAT
+    obstacle bundle ``pre``; ``live`` [V, B, n] bool or uint8. One launch
+    of the SAT kernel (counted on ``sat_hits.launches``)."""
+    dev = _device_of(live)
+    v, b, n, va = _check_lattice(lat, live, dev)
+    if dev < 0:
+        return sat_hits_lattice_plain(lat, live, pre)
+    ptrs, no, vo = _obstacle_ptrs(pre, v, dev)
+    out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
+    if out.numel() == 0:
+        return out
+    _launched(build_kernels().sat_hits_lattice(
+        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+        v, b, no, vo, _stream(dev)), sat_hits)
+    return out

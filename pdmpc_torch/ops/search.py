@@ -10,11 +10,11 @@ layer launches each collision kernel once.
 The collision checks go only through ``ops.collision``'s wrappers: the
 CUDA kernels on the card, their plain versions on the CPU. Obstacles are
 checked by outline crossing (road scenarios, ``non_convex``) or by SAT
-(convex path); the lanelet boundary, where there is one, by crossing. The
-crossing checks take each layer's lattice (area table, parent trims,
-poses, yaw cosines and sines) and its live mask and return the
-feasibility mask: the kernels build the candidates in registers and scan
-only live ones, so a layer's whole collision mask is one or two launches.
+(convex path); the lanelet boundary, where there is one, by crossing. Each
+check takes the layer's lattice (area table, parent trims, poses, yaw
+cosines and sines) and its live mask and returns the feasibility mask: the
+kernels build the candidates in registers and scan only live ones, so a
+layer's whole collision mask is one or two launches.
 
 Multiply-adds that XLA:CPU contracts in the reference (the child pose
 ``fma(c, dx, -(s * dy)) + x`` and ``fma(s, dx, c * dy) + y``, the same
@@ -36,7 +36,6 @@ from pdmpc_torch.ops.collision import (
     SegmentsPre,
     boundary_hits,
     boundary_hits_lattice,
-    candidate_polys,
     outline_hits,
     outline_hits_lattice,
     precompute_obstacles,
@@ -44,6 +43,7 @@ from pdmpc_torch.ops.collision import (
     precompute_segments,
     sat_axes,
     sat_hits,
+    sat_hits_lattice,
     sat_project,
 )
 from pdmpc_torch.ops.geometry import fma
@@ -234,16 +234,14 @@ def plan_trajectory(
 
         # --- collision mask (eval_edge_exact capability) ------------------
         # feasible = valid & allowed & ~(obstacle hit | boundary hit); the
-        # crossing kernels build the candidates themselves and scan only
-        # the ones still live
+        # kernels build the candidates themselves and scan only the ones
+        # still live
         live = valid[..., None] & allowed                     # [V, B, n]
         obs_k = type(obs_pre)(*(x[k] for x in obs_pre))
-        if non_convex:
-            feasible = outline_hits_lattice(
-                Lattice(mpa.area, trim, pose, c, s), live, obs_k)
-        else:
-            cx, cy = candidate_polys(mpa.area, trim, pose, c, s)
-            feasible = live & ~sat_hits(cx, cy, obs_k).reshape(v, b_in, n)
+        obstacle_check = (outline_hits_lattice if non_convex
+                          else sat_hits_lattice)
+        feasible = obstacle_check(Lattice(mpa.area, trim, pose, c, s), live,
+                                  obs_k)
         if segments_pre is not None:
             # boundary areas: without offset; larger offset at final step
             table = (mpa.area_large_offset if k == hp - 1

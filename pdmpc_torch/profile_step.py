@@ -47,7 +47,7 @@ TOP = 15
 KERNELS = {
     "outline_hits": ("outline_hits_lattice", "OutlineSegs"),
     "boundary_hits": ("boundary_hits_lattice", "BoundarySegs"),
-    "sat_hits": ("sat_hits", "sat_hits_kernel"),
+    "sat_hits": ("sat_hits_lattice", "sat_hits_kernel"),
 }
 
 

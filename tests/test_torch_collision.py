@@ -501,17 +501,126 @@ def test_lattice_plain_bit_equal_to_xla(road_layer, layer):
     assert 0 < int(got.sum()) < int(feasible.sum())
 
 
+@pytest.fixture(scope="module")
+def circle_layer():
+    """One search layer of the circle MPA (its convex area table and
+    transitions) for 2 vehicles x 8 parent nodes, from a numpy seed:
+    parents close together (neighbouring lattices touch); among the
+    obstacles candidate polygons themselves (exact touches), boxes that
+    share one candidate edge exactly (as chip_smoke.sat_inputs draws them)
+    and random convex polygons, all padded to 16 vertices by repeating the
+    last one, some of them masked."""
+    from pdmpc_tpu.config import Config, ScenarioType
+    from pdmpc_tpu.models.mpa import build_mpa
+
+    cfg = Config(scenario_type=ScenarioType.circle, amount=3,
+                 T_end=2.0).validate()
+    mpa = {k: np.asarray(v) for k, v in
+           build_mpa(cfg).to_tensors_for(cfg)._asdict().items()}
+    rng = np.random.default_rng(5)
+    v, b, n_obs = 2, 8, 14
+    n = mpa["area"].shape[0]
+    trim = rng.integers(0, n, size=(v, b))
+    pose = np.concatenate([rng.uniform(0.5, 2.0, (v, b, 2)),
+                           rng.uniform(-np.pi, np.pi, (v, b, 1))],
+                          -1).astype(np.float32)
+    c, s = np.cos(pose[..., 2:]), np.sin(pose[..., 2:])
+    valid = rng.random((v, b)) < 0.8
+    cand = np.asarray(_xla_polys(mpa["area"], trim, pose, c, s))
+    obs = np.zeros((v, n_obs, VO, 2), np.float32)
+    for i in range(v):
+        picks = rng.choice(b * n, 6, replace=False)
+        for o in range(2):
+            obs[i, o] = pad16(cand[i, picks[o]])
+        for o in range(2, 6):                          # edge-sharing boxes
+            poly = cand[i, picks[o]]
+            e = int(rng.integers(3))                   # a real edge
+            a, b_ = poly[e].astype(np.float64), poly[e + 1].astype(np.float64)
+            normal = np.array([b_[1] - a[1], a[0] - b_[0]])
+            normal *= 0.1 / max(np.linalg.norm(normal), 1e-9)
+            if np.dot(normal, a - poly.mean(0)) < 0:
+                normal = -normal
+            box = np.array([a, a + normal, b_ + normal, b_], np.float32)
+            box[0], box[3] = poly[e], poly[e + 1]      # exact shared edge
+            obs[i, o] = pad16(box)
+        for o in range(6, n_obs):
+            n_v = rng.integers(3, 9)
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n_v))
+            obs[i, o] = pad16(rng.uniform(0.5, 2.0, 2) + rng.uniform(
+                0.03, 0.1) * np.stack([np.cos(ang), np.sin(ang)], -1))
+    obs_mask = rng.random((v, n_obs)) < 0.7
+    obs_mask[:, 0] = True
+    return dict(mpa=mpa, trim=trim, pose=pose, c=c, s=s, valid=valid,
+                obs=obs, obs_mask=obs_mask)
+
+
+@jax.jit
+def _xla_sat_feasible(area, trim, pose, c, s, valid, allowed, obs,
+                      obs_mask):
+    """valid & allowed & ~candidate_collisions for each vehicle, with the
+    candidates built as pdmpc_tpu's XLA search path builds them."""
+    def one(trim, pose, c, s, valid, allowed, obs, obs_mask):
+        collide = jsearch.candidate_collisions(
+            _world(area, trim, pose, c, s), obs, obs_mask
+        ).reshape(allowed.shape)
+        return valid[:, None] & allowed & ~collide
+
+    return jax.vmap(one)(trim, pose, c, s, valid, allowed, obs, obs_mask)
+
+
+def _circle_port_layer(d, k):
+    """The port's lattice, live mask and SAT bundle of layer ``k``."""
+    t = torch.tensor
+    trim = t(d["trim"])
+    lat = tc.Lattice(t(d["mpa"]["area"]), trim, t(d["pose"]), t(d["c"]),
+                     t(d["s"]))
+    live = t(d["valid"])[..., None] & t(d["mpa"]["transition"][k])[trim]
+    return lat, live, tc.precompute_obstacles(t(d["obs"]), t(d["obs_mask"]))
+
+
+@pytest.mark.parametrize("layer", ["first", "last"])
+def test_sat_lattice_bit_equal_to_xla(circle_layer, layer):
+    """The SAT lattice form and its plain version equal the XLA path's
+    ``valid & allowed & ~candidate_collisions`` bit for bit, on candidates
+    that touch obstacles exactly."""
+    d = circle_layer
+    mpa = d["mpa"]
+    k = 0 if layer == "first" else mpa["transition"].shape[0] - 1
+    lat, live, pre = _circle_port_layer(d, k)
+    got = tc.sat_hits_lattice(lat, live, pre)
+    np.testing.assert_array_equal(
+        got.numpy(), tc.sat_hits_lattice_plain(lat, live, pre).numpy())
+    want = _xla_sat_feasible(
+        mpa["area"], d["trim"], d["pose"], d["c"], d["s"], d["valid"],
+        mpa["transition"][k][d["trim"]], d["obs"], d["obs_mask"])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # non-trivial: the check rules out live candidates, some survive
+    assert 0 < int(got.sum()) < int(live.sum())
+
+
+KERNELS = ("outline_hits", "boundary_hits", "sat_hits")
+
+
+def _kernel_layer(request, kernel, k):
+    """Lattice, live mask and bundle of ``kernel``'s check at layer ``k``:
+    the road layer for the crossing kernels (the boundary check on its
+    boundary areas), the circle layer for SAT."""
+    if kernel == "sat_hits":
+        return _circle_port_layer(request.getfixturevalue("circle_layer"), k)
+    lat, bnd_lat, live, out_pre, seg_pre = _port_layer(
+        request.getfixturevalue("road_layer"), k)
+    if kernel == "boundary_hits":
+        return bnd_lat, live, seg_pre
+    return lat, live, out_pre
+
+
 @pytest.mark.parametrize("live_dtype", [torch.bool, torch.uint8])
-@pytest.mark.parametrize("kernel", ["outline_hits", "boundary_hits"])
-def test_lattice_forms_take_a_live_mask(road_layer, kernel, live_dtype):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_lattice_forms_take_a_live_mask(request, kernel, live_dtype):
     """Candidates that are not live come out False; live ones equal ~hit
     of the (cx, cy) form on the same candidates; the (cx, cy) form with a
     live mask returns the same feasibility."""
-    lat, bnd_lat, _, out_pre, seg_pre = _port_layer(road_layer, 1)
-    if kernel == "boundary_hits":
-        lat, pre = bnd_lat, seg_pre
-    else:
-        pre = out_pre
+    lat, _, pre = _kernel_layer(request, kernel, 1)
     rng = np.random.default_rng(4)
     v, b = lat.trim.shape
     n = lat.table.shape[0]
@@ -528,28 +637,28 @@ def test_lattice_forms_take_a_live_mask(road_layer, kernel, live_dtype):
     assert torch.equal(flat, got.reshape(v, -1))
 
 
-def test_lattice_wrappers_check_inputs(road_layer):
-    lat, bnd_lat, live, out_pre, seg_pre = _port_layer(road_layer, 0)
-    for fn, lat_, pre in ((tc.outline_hits_lattice, lat, out_pre),
-                          (tc.boundary_hits_lattice, bnd_lat, seg_pre)):
-        for bad in (dict(live=live[:, :-1]),            # shapes
-                    dict(live=live.float()),            # dtypes
-                    dict(lat=lat_._replace(trim=lat_.trim.int())),
-                    dict(lat=lat_._replace(table=lat_.table[:, :5])),
-                    dict(lat=lat_._replace(c=lat_.c.double())),
-                    dict(lat=lat_._replace(pose=lat_.pose[..., :2])),
-                    dict(live=live.to("meta")),         # mixed devices
-                    # one device, but not CUDA: no plain fallback
-                    dict(lat=tc.Lattice(*(x.to("meta") for x in lat_)),
-                         live=live.to("meta"))):
-            args = dict(lat=lat_, live=live, pre=pre) | bad
-            with pytest.raises(ValueError):
-                fn(**args)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_lattice_wrappers_check_inputs(request, kernel):
+    lat, live, pre = _kernel_layer(request, kernel, 0)
+    fn = getattr(tc, kernel + "_lattice")
+    for bad in (dict(live=live[:, :-1]),                # shapes
+                dict(live=live.float()),                # dtypes
+                dict(lat=lat._replace(trim=lat.trim.int())),
+                dict(lat=lat._replace(table=lat.table[:, :5])),
+                dict(lat=lat._replace(c=lat.c.double())),
+                dict(lat=lat._replace(pose=lat.pose[..., :2])),
+                dict(live=live.to("meta")),             # mixed devices
+                # one device, but not CUDA: no plain fallback
+                dict(lat=tc.Lattice(*(x.to("meta") for x in lat)),
+                     live=live.to("meta"))):
+        args = dict(lat=lat, live=live, pre=pre) | bad
+        with pytest.raises(ValueError):
+            fn(**args)
     cx, cy = tc.candidate_polys(*lat)
-    for fn, pre in ((tc.outline_hits, out_pre), (tc.boundary_hits, seg_pre)):
-        with pytest.raises(ValueError):
-            fn(cx, cy, pre, live)                       # live not [V, C]
-        with pytest.raises(ValueError):
-            fn(cx, cy, pre, live.reshape(2, -1).float())
-        with pytest.raises(ValueError):
-            fn(cx.to("meta"), cy.to("meta"), pre)
+    fn = getattr(tc, kernel)
+    with pytest.raises(ValueError):
+        fn(cx, cy, pre, live)                           # live not [V, C]
+    with pytest.raises(ValueError):
+        fn(cx, cy, pre, live.reshape(2, -1).float())
+    with pytest.raises(ValueError):
+        fn(cx.to("meta"), cy.to("meta"), pre)

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from pdmpc_torch import convert
+from pdmpc_torch.ops import collision as tc
 from pdmpc_torch.ops import search as tsearch
 from pdmpc_tpu.config import Config, ScenarioType
 from pdmpc_tpu.controller import initial_state, make_prioritized_step
@@ -142,22 +143,34 @@ def test_cost_to_go_matches_reference():
 
 def test_collision_checks_per_layer(replay, monkeypatch):
     """Each search layer masks its candidates with one call of each check
-    that applies: on the road the outline and boundary kernels' lattice
-    forms, the outline result passed on as the boundary check's live mask;
-    on the circle the SAT kernel on built candidates and no crossing
-    kernel. The plan so made is the reference's XLA-path plan."""
+    that applies, in its lattice form: on the road the outline and
+    boundary kernels', the outline result passed on as the boundary
+    check's live mask; on the circle the SAT kernel's and no crossing
+    kernel's. The search builds no candidate tensors itself: every call of
+    ``candidate_polys`` comes from inside a collision wrapper (their plain
+    versions on the CPU). The plan so made is the reference's XLA-path
+    plan."""
     cfg, mpa_j, caps = replay
     mpa = convert.mpa_from_numpy(
         {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
     hp = cfg.Hp
     cap = max(caps, key=lambda c: int(c["obs_mask"].sum()))
 
-    names = ("outline_hits_lattice", "boundary_hits_lattice", "sat_hits",
-             "outline_hits", "boundary_hits")
+    polys_calls = {"all": 0, "in_wrappers": 0}
+
+    def counted(*args, _fn=tc.candidate_polys):
+        polys_calls["all"] += 1
+        return _fn(*args)
+
+    monkeypatch.setattr(tc, "candidate_polys", counted)
+    names = ("outline_hits_lattice", "boundary_hits_lattice",
+             "sat_hits_lattice", "outline_hits", "boundary_hits", "sat_hits")
     calls = {name: [] for name in names}
     for name in names:
         def recorded(*args, _name=name, _fn=getattr(tsearch, name)):
+            before = polys_calls["all"]
             out = _fn(*args)
+            polys_calls["in_wrappers"] += polys_calls["all"] - before
             calls[_name].append((args, out))
             return out
         monkeypatch.setattr(tsearch, name, recorded)
@@ -166,11 +179,12 @@ def test_collision_checks_per_layer(replay, monkeypatch):
     assert {name: len(c) for name, c in calls.items()} == {
         "outline_hits_lattice": hp if road else 0,
         "boundary_hits_lattice": hp if road else 0,
-        "sat_hits": 0 if road else hp,
-        "outline_hits": 0, "boundary_hits": 0}
+        "sat_hits_lattice": 0 if road else hp,
+        "outline_hits": 0, "boundary_hits": 0, "sat_hits": 0}
     for (_, outline), (args, _) in zip(calls["outline_hits_lattice"],
                                        calls["boundary_hits_lattice"]):
         assert args[1] is outline
+    assert polys_calls["all"] == polys_calls["in_wrappers"] > 0
 
     want = _reference_planner(cfg, mpa_j, cap)(cap)
     for field in ("trims", "is_exhausted", "n_expanded", "cost"):
