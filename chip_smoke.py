@@ -34,14 +34,40 @@ Phases, any failure exits non-zero:
 8. path shapes: every search layer's lattice-form call of the outline
    and boundary kernels in phase 7's road plan, and of the SAT kernel in
    its circle plan, held bit for bit against its plain version on the
-   same inputs and timed beside it.
+   same inputs and timed beside it;
+9. headline: cr20 with coloring priorities at beam 256 (20 steps), the
+   repo's headline configuration, counters zeroed: the road kernels must
+   launch and SAT must not; collision-free, on the road, every vehicle
+   moves more than 0.3 m, fallback share < 0.5; then bench.py's gate
+   against tests/expected_results/commonroad_20veh_coloring_tpu.npz
+   (same fallback pattern, total cost within 1%), with whether trims and
+   levels match exactly printed;
+10. mixed fleet: 64 vehicles (40 road, 24 free-space), beam 128, 10
+   steps, bench.py's configuration: collision-free, every vehicle moves
+   more than 0.2 m, road vehicles on the road, the road kernels launch;
+   then its fullest chunk planned with kernels and with plain versions,
+   and every layer's lattice-form call of the road kernels held bit for
+   bit (the outline kernel's whole 3,072-edge stage; free-space vehicles
+   with no active boundary segment);
+11. strategy goldens: the gate of phase 4 for the matrix cells mx01
+   (coloring), mx06 (optimal voting, full coupling, realistic MPA), mx07
+   (explorative voting), mx08 (FCA, distance coupling) and mixed_16veh,
+   with each run's launches checked (road kernels on road and mixed runs,
+   SAT on circle runs);
+12. voting: cr20 at beam 512 for 10 steps with constant, optimal (16
+   orientations a step) and explorative priorities: collision-free; the
+   step medians and the optimal and explorative ones' factors over the
+   constant one printed.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
 JSON: per kernel the keys of the port's contract (phase 2's all-live
 numbers, launches from phases 3 and 5), ``live_mask``, ``path`` (phase 8,
-per layer and per plan) and ``launches_per_step``; for SAT also
-``lattice`` (phase 2's lattice form).
+per layer and per plan; for the road kernels also ``path_mixed64``,
+phase 10's chunk), ``launches_per_step`` and
+``launches_by_path`` (launches and launches a step of every driven run of
+phases 3, 5 and 9 to 12); for SAT also ``lattice`` (phase 2's lattice
+form).
 """
 
 from __future__ import annotations
@@ -493,14 +519,53 @@ def vehicle_collisions(poses, length, width):
 
 
 KERNELS = ("outline_hits", "boundary_hits", "sat_hits")
+# golden of phase 9's headline run (cr20, coloring priorities, beam 256)
+HEADLINE_GOLDEN = "commonroad_20veh_coloring_tpu"
 
 
-def drive(coll, run_experiment, cfg, card, label, launched, dims):
+def road_offroad(res, cfg, n_road):
+    """(step, vehicle) pairs among the first ``n_road`` vehicles whose
+    applied pose center leaves the drivable corridor of its own
+    reference-loop lanelets (tests/golden.py vehicle_centers_offroad on
+    the port's own road tables). A vehicle still at its start pose is not
+    counted: that pose is the first point of its centerline, on the edge
+    where its first lanelet's corridor begins, which the crossing-number
+    test may count either way."""
+    import torch
+
+    from pdmpc_torch.experiment import create_scenario
+    from pdmpc_torch.models.mpa import build_mpa
+    from pdmpc_torch.ops.geometry import point_in_ring
+    from pdmpc_torch.scenarios.scenario import road_to_tensors
+
+    cfg = cfg.validate()
+    sc = create_scenario(cfg, build_mpa(cfg))
+    rings = road_to_tensors(sc.road, "cpu").corridor_rings
+    centers = torch.as_tensor(res.infos.poses[:, :, 0, :2])  # [k, N, 2]
+    bad = []
+    for v in range(n_road):
+        ids = sorted(set(int(i) for i in sc.lanelet_indices[v]))
+        inside = point_in_ring(centers[:, v, None], rings[ids][None]).any(-1)
+        start = torch.as_tensor(sc.start_poses[v, :2], dtype=centers.dtype)
+        at_start = (centers[:, v] - start).abs().amax(dim=-1) < 1e-6
+        bad += [(k, v) for k in (~inside & ~at_start).nonzero().flatten()
+                .tolist()]
+    return bad
+
+
+def step_line(res, launches):
+    """Step median and p95 (ms) of a run and its launches a step."""
+    steps = np.asarray(res.timings["step_seconds"]) * 1e3
+    return (f"step median {np.median(steps):.3f} ms, p95 "
+            f"{np.percentile(steps, 95):.3f} ms, first step {steps[0]:.3f} "
+            f"ms, launches per step " + ", ".join(
+                f"{k} {v / res.n_steps:.2f}" for k, v in launches.items()))
+
+
+def counted_run(coll, run_experiment, cfg, label, launched):
     """Run ``cfg`` on the card with every launch counter zeroed first;
-    require the kernels in ``launched`` to launch and the others not to;
-    check the run (finite, collision-free, every vehicle moves > 0.3 m,
-    fallback share < 0.5) and print its step times. Returns the launch
-    counts and the number of steps."""
+    require the kernels in ``launched`` to launch and the others not to.
+    Returns (launch counts, result)."""
     for name in KERNELS:
         getattr(coll, name).launches = 0
     res = run_experiment(cfg, device="cuda")
@@ -510,54 +575,84 @@ def drive(coll, run_experiment, cfg, card, label, launched, dims):
         if (launches[name] > 0) != (name in launched):
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times")
-    poses = res.infos.poses[:, :, 0]                      # [k, N, 3]
     if not np.isfinite(res.infos.poses).all():
         raise AssertionError(f"{label}: non-finite poses")
+    return launches, res
+
+
+def drive(coll, run_experiment, cfg, card, label, launched, dims,
+          min_moved=0.3, max_fallback_share=0.5, n_road=0):
+    """``counted_run`` of ``cfg``, then check it: collision-free, every
+    vehicle moves more than ``min_moved`` m, the fallback share below
+    ``max_fallback_share`` (None: printed only) and the first ``n_road``
+    vehicles on the road; print its step times. Returns the launch counts
+    and the result."""
+    launches, res = counted_run(coll, run_experiment, cfg, label, launched)
+    poses = res.infos.poses[:, :, 0]                      # [k, N, 3]
     collisions = vehicle_collisions(poses, *dims)
     if collisions:
         raise AssertionError(f"{label}: vehicle collisions: "
                              f"{collisions[:10]}")
     moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
-    if not (moved > 0.3).all():
+    if not (moved > min_moved).all():
         raise AssertionError(f"{label}: stuck vehicles: moved {moved}")
     fb_share = float(res.infos.needs_fallback.mean())
-    if fb_share >= 0.5:
+    if max_fallback_share is not None and fb_share >= max_fallback_share:
         raise AssertionError(f"{label}: fallback share {fb_share}")
-    steps = np.asarray(res.timings["step_seconds"]) * 1e3
+    offroad = road_offroad(res, cfg, n_road) if n_road else []
+    if offroad:
+        raise AssertionError(f"{label}: off the road: {offroad[:10]}")
     solves = cfg.amount * res.n_steps / res.timings["control_loop"]
     print(f"{label} ({card}): beam {cfg.beam_width}, Hp {cfg.Hp}, "
-          f"{res.n_steps} steps, {cfg.amount} vehicles, step median "
-          f"{np.median(steps):.3f} ms, p95 {np.percentile(steps, 95):.3f} "
-          f"ms, first step {steps[0]:.3f} ms, {solves:.1f} vehicle-solves/s, "
+          f"{res.n_steps} steps, {cfg.amount} vehicles, "
+          f"{step_line(res, launches)}, {solves:.1f} vehicle-solves/s, "
           f"fallback share {fb_share:.4f}, min distance moved "
-          f"{moved.min():.3f} m, launches per step "
-          + ", ".join(f"{k} {v / res.n_steps:.2f}"
-                      for k, v in launches.items()), flush=True)
-    return launches, res.n_steps
+          f"{moved.min():.3f} m, on the road: {n_road} vehicles checked",
+          flush=True)
+    return launches, res
 
 
-def golden_gate(run_experiment, cfg, name):
+def golden_gate(run_experiment, cfg, name, coll=None, launched=None):
     """The gate bench.py holds the TPU to (same fallback pattern as the CPU
     golden, total cost within 1%), and beyond it an exact match: trims
-    and levels equal, poses within 1e-4."""
-    gold = run_experiment(cfg, device="cuda")
-    with np.load(os.path.join(GOLDEN_DIR, name + ".npz")) as g:
-        ref = {k: g[k] for k in g.files}
-    if not (gold.infos.needs_fallback == ref["needs_fallback"]).all():
-        raise AssertionError(f"{name}: fallback pattern differs from golden")
-    cost, cost_ref = float(gold.infos.cost.sum()), float(ref["cost"].sum())
-    rel = abs(cost - cost_ref) / max(abs(cost_ref), 1e-9)
-    if rel > 0.01:
-        raise AssertionError(f"{name}: total cost off by {rel:.4%}")
+    and levels equal, poses within 1e-4. With ``coll``, the run's launch
+    counts are checked as ``counted_run`` does and returned."""
+    if coll is None:
+        gold, launches = run_experiment(cfg, device="cuda"), None
+    else:
+        launches, gold = counted_run(coll, run_experiment, cfg, name,
+                                     launched)
+    ref = load_golden(name)
+    rel = behavior_gate(gold, ref, name)
     exact = (np.allclose(gold.infos.poses, ref["poses"], rtol=1e-7,
                          atol=1e-4)
              and (gold.infos.trims == ref["trims"]).all()
              and (gold.infos.levels == ref["levels"]).all())
     print(f"golden gate {name}: fallbacks match, total cost rel diff "
-          f"{rel:.3e}, exact match {exact}", flush=True)
+          f"{rel:.3e}, exact match {exact}"
+          + (f"; {step_line(gold, launches)}" if launches else ""),
+          flush=True)
     if not exact:
         raise AssertionError(f"{name}: trims, levels or poses differ from "
                              f"the golden")
+    return launches, gold
+
+
+def load_golden(name):
+    with np.load(os.path.join(GOLDEN_DIR, name + ".npz")) as g:
+        return {k: g[k] for k in g.files}
+
+
+def behavior_gate(res, ref, name):
+    """bench.py's gate: the same fallback pattern as ``ref`` and total
+    cost within 1% of it. Returns the cost's relative difference."""
+    if not (res.infos.needs_fallback == ref["needs_fallback"]).all():
+        raise AssertionError(f"{name}: fallback pattern differs from golden")
+    cost, cost_ref = float(res.infos.cost.sum()), float(ref["cost"].sum())
+    rel = abs(cost - cost_ref) / max(abs(cost_ref), 1e-9)
+    if rel > 0.01:
+        raise AssertionError(f"{name}: total cost off by {rel:.4%}")
+    return rel
 
 
 # search-module names of the collision checks that have a plain twin in
@@ -568,12 +663,19 @@ LATTICE = {"outline_hits_lattice": "outline_hits",
 SWAPPED = KERNELS + tuple(LATTICE)
 
 
-def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
+def active_slots(args, kwargs):
+    """Active obstacle slots of a recorded planning chunk."""
+    return int(args[5].mask.sum())
+
+
+def plans_with_plain_versions(torch, coll, run_experiment, cfg, label,
+                              rank=active_slots):
     """Phase 7: record the planning chunks of a short run, take the one
-    with the most active obstacles, and plan it again twice: with the
-    kernels, and with their plain versions swapped into the search. The
-    plans must be equal. Returns the lattice-form calls of the plan with
-    the kernels: (kernel name, layer, lattice, live, bundle)."""
+    ranked highest by ``rank(args, kwargs)`` (by default: the most active
+    obstacles), and plan it again twice: with the kernels, and with their
+    plain versions swapped into the search. The plans must be equal.
+    Returns the lattice-form calls of the plan with the kernels: (kernel
+    name, layer, lattice, live, bundle)."""
     import pdmpc_torch.controller as ctl
     from pdmpc_torch.ops import search
 
@@ -588,7 +690,7 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label):
         run_experiment(cfg, device="cuda")
     finally:
         ctl.plan_trajectory = search.plan_trajectory
-    args, kwargs = max(calls, key=lambda c: int(c[0][5].mask.sum()))
+    args, kwargs = max(calls, key=lambda c: rank(*c))
     if not args[5].mask.any():
         raise AssertionError(f"{label}: no chunk planned against obstacles")
 
@@ -669,12 +771,13 @@ PATH_BOUNDS = {
 }
 
 
-def path_shapes(torch, coll, lattice_calls, rows, names, label):
+def path_shapes(torch, coll, lattice_calls, rows, names, label,
+                row_key="path"):
     """Phase 8: every lattice-form call of the kernels ``names`` in a
     recorded plan, held bit for bit against its plain version on the same
     inputs and timed beside it, bound over the live candidates (for the
     boundary kernel: those the obstacle test left live). Adds each
-    kernel's per-layer and per-plan numbers to its row."""
+    kernel's per-layer and per-plan numbers to its row under ``row_key``."""
     if not {c[0] for c in lattice_calls} >= set(names):
         raise AssertionError(f"the {label} made no lattice-form call of "
                              f"each of {names}")
@@ -702,13 +805,103 @@ def path_shapes(torch, coll, lattice_calls, rows, names, label):
         path = {"plan": label, "layers": layers}
         for key in ("ms", "plain_ms", "bound_ms"):
             path[key + "_per_plan"] = sum(x[key] for x in layers)
-        rows[name]["path"] = path
+        rows[name][row_key] = path
         print(f"path shapes {name} ({label}): {len(layers)} layers, "
               f"{path['ms_per_plan']:.5f} ms a plan, plain "
               f"{path['plain_ms_per_plan']:.4f} ms, bound "
               f"{path['bound_ms_per_plan']:.6f} ms; by layer "
               + ", ".join(f"{x['live']}/{x['candidates']} live "
                           f"{x['ms']:.5f} ms" for x in layers), flush=True)
+
+
+def free_space_first(args, kwargs):
+    """Rank of a recorded mixed-fleet chunk: one with a free-space vehicle
+    (no active boundary segment) first, then the most active obstacles."""
+    no_segments = bool((kwargs["segments_pre"].mask.sum(dim=1) == 0).any())
+    return (no_segments, active_slots(args, kwargs))
+
+
+def headline_gate(res):
+    """Phase 9's gate: bench.py's (same fallback pattern, total cost within
+    1%) against the TPU golden of the headline configuration; whether
+    trims and levels match it exactly is printed."""
+    ref = load_golden(HEADLINE_GOLDEN)
+    rel = behavior_gate(res, ref, HEADLINE_GOLDEN)
+    trims = bool((res.infos.trims == ref["trims"]).all())
+    levels = bool((res.infos.levels == ref["levels"]).all())
+    print(f"golden gate {HEADLINE_GOLDEN}: fallbacks match, total cost rel "
+          f"diff {rel:.3e}, trims equal {trims}, levels equal {levels}",
+          flush=True)
+
+
+def strategy_goldens(Config):
+    """(golden name, configuration) of phase 11: tests/test_matrix.py's
+    cells mx01, mx06, mx07 and mx08 at its scale, and mixed_16veh
+    (tests/test_system_commonroad.py)."""
+    from pdmpc_torch import (
+        CouplingStrategies as Co,
+        MpaType as M,
+        PriorityStrategies as P,
+        ScenarioType as S,
+        WeightStrategies as W,
+    )
+
+    cells = {
+        "mx01": (S.commonroad, M.single_speed, Co.reachable_set_coupling,
+                 P.coloring_priority, W.constant_weight),
+        "mx06": (S.circle, M.realistic, Co.full_coupling,
+                 P.optimal_priority, W.distance_weight),
+        "mx07": (S.commonroad, M.single_speed, Co.no_coupling,
+                 P.explorative_priority, W.distance_weight),
+        "mx08": (S.circle, M.single_speed, Co.distance_coupling,
+                 P.FCA_priority, W.constant_weight),
+    }
+    for name, (sc, mpa, co, pr, w) in cells.items():
+        yield name, Config(scenario_type=sc, amount=3, T_end=1.0,
+                           beam_width=64, mpa_type=mpa, coupling=co,
+                           priority=pr, weight=w, mcts_n_rollouts=128)
+    yield "mixed_16veh", Config(scenario_type=S.mixed, amount=16, T_end=1.0,
+                                beam_width=64)
+
+
+def voting(coll, run_experiment, Config, card, dims, record):
+    """Phase 12: cr20 at beam 512 for 10 steps with constant, optimal and
+    explorative priorities; each collision-free and on the road, its step
+    median and p95 printed with its factor over the constant run's."""
+    from pdmpc_torch import PriorityStrategies as P
+
+    medians = {}
+    for priority in (P.constant_priority, P.optimal_priority,
+                     P.explorative_priority):
+        label = f"voting {priority.value}"
+        launches, res = drive(coll, run_experiment,
+                              Config(amount=20, T_end=2.0, priority=priority),
+                              card, label, ("outline_hits", "boundary_hits"),
+                              dims, min_moved=0.1, max_fallback_share=None,
+                              n_road=20)
+        record(label, launches, res)
+        medians[priority] = float(np.median(res.timings["step_seconds"]))
+        print(f"{label}: largest level count "
+              f"{res.max_number_of_computation_levels}, step median "
+              f"{medians[priority] / medians[P.constant_priority]:.2f} "
+              f"times the constant run's", flush=True)
+
+
+# keys of a kernel's row in the JSON line, and their types
+CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
+            "launches": int, "max_abs_err": float, "ms": float,
+            "plain_ms": float, "bound_ms": float, "bound_by": str,
+            "library_ms": type(None)}
+
+
+def check_contract(rows):
+    """Raise unless every kernel row has each key of CONTRACT with a value
+    of its type."""
+    for row in rows:
+        for key, kind in CONTRACT.items():
+            if not isinstance(row.get(key), kind):
+                raise AssertionError(f"{row['name']}: {key} = "
+                                     f"{row.get(key)!r}, not {kind.__name__}")
 
 
 def main() -> int:
@@ -718,7 +911,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from pdmpc_torch import Config, ScenarioType
+    from pdmpc_torch import Config, PriorityStrategies, ScenarioType
     from pdmpc_torch.experiment import run_experiment
     from pdmpc_torch.models.bicycle import VEHICLE_LENGTH, VEHICLE_WIDTH
     from pdmpc_torch.ops import collision as coll
@@ -740,23 +933,35 @@ def main() -> int:
     # ---- 2. kernels vs plain ----------------------------------------------
     rows = {row["name"]: row for row in check_kernels(torch, coll, "cuda")}
 
+    # launches and launches a step of every driven run, per kernel
+    by_path = {name: {} for name in KERNELS}
+
+    def record(label, launches, res):
+        for name, count in launches.items():
+            by_path[name][label] = {"launches": count,
+                                    "per_step": count / res.n_steps}
+
     # ---- 3. road path -----------------------------------------------------
-    road, road_steps = drive(coll, run_experiment,
-                             Config(amount=20, T_end=4.0), card, "road path",
-                             ("outline_hits", "boundary_hits"), dims)
+    road_kernels = ("outline_hits", "boundary_hits")
+    road, road_res = drive(coll, run_experiment,
+                           Config(amount=20, T_end=4.0), card, "road path",
+                           road_kernels, dims)
+    record("road", road, road_res)
     # ---- 4. road golden gate ----------------------------------------------
     golden_gate(run_experiment, Config(amount=20, T_end=4.0, beam_width=64),
                 "commonroad_20veh")
     # ---- 5. convex path ---------------------------------------------------
-    convex, circle_steps = drive(
+    convex, circle_res = drive(
         coll, run_experiment,
         Config(scenario_type=circle, amount=10, T_end=8.0), card,
         "circle path", ("sat_hits",), dims)
-    for name in ("outline_hits", "boundary_hits"):
+    record("circle", convex, circle_res)
+    for name in road_kernels:
         rows[name]["launches"] = road[name]
-        rows[name]["launches_per_step"] = road[name] / road_steps
+        rows[name]["launches_per_step"] = road[name] / road_res.n_steps
     rows["sat_hits"]["launches"] = convex["sat_hits"]
-    rows["sat_hits"]["launches_per_step"] = convex["sat_hits"] / circle_steps
+    rows["sat_hits"]["launches_per_step"] = (convex["sat_hits"]
+                                             / circle_res.n_steps)
     # ---- 6. convex golden gate --------------------------------------------
     golden_gate(run_experiment,
                 Config(scenario_type=circle, amount=3, T_end=2.0, Hp=10,
@@ -769,11 +974,46 @@ def main() -> int:
         torch, coll, run_experiment,
         Config(scenario_type=circle, amount=10, T_end=3.0), "circle chunk")
     # ---- 8. the kernels at the recorded chunks' own shapes ---------------
-    path_shapes(torch, coll, road_calls, rows,
-                ("outline_hits", "boundary_hits"), "road chunk")
+    path_shapes(torch, coll, road_calls, rows, road_kernels, "road chunk")
     path_shapes(torch, coll, circle_calls, rows, ("sat_hits",),
                 "circle chunk")
+    # ---- 9. headline: cr20 coloring at beam 256 ---------------------------
+    headline = Config(amount=20, T_end=4.0, beam_width=256,
+                      priority=PriorityStrategies.coloring_priority)
+    launches, res = drive(coll, run_experiment, headline, card, "headline",
+                          road_kernels, dims, n_road=headline.amount)
+    record("headline", launches, res)
+    headline_gate(res)
+    # ---- 10. mixed fleet --------------------------------------------------
+    mixed64 = Config(scenario_type=ScenarioType.mixed, amount=64, T_end=2.0,
+                     beam_width=128)
+    launches, res = drive(coll, run_experiment, mixed64, card, "mixed64",
+                          road_kernels, dims, min_moved=0.2,
+                          max_fallback_share=None, n_road=40)
+    record("mixed64", launches, res)
+    # a chunk with a free-space vehicle (no active boundary segment),
+    # planned with kernels and with plain versions, and every layer's
+    # lattice-form call held bit for bit (3 families x 64 vehicles: the
+    # outline kernel's whole 3,072-edge stage)
+    mixed_calls = plans_with_plain_versions(
+        torch, coll, run_experiment,
+        Config(scenario_type=ScenarioType.mixed, amount=64, T_end=0.4,
+               beam_width=128), "mixed64 chunk", rank=free_space_first)
+    path_shapes(torch, coll, mixed_calls, rows, road_kernels,
+                "mixed64 chunk", row_key="path_mixed64")
+    # ---- 11. strategy goldens --------------------------------------------
+    for name, cfg in strategy_goldens(Config):
+        launched = (("sat_hits",) if cfg.scenario_type == circle
+                    else road_kernels)
+        launches, res = golden_gate(run_experiment, cfg, name, coll,
+                                    launched)
+        record(name, launches, res)
+    # ---- 12. voting: optimal and explorative against constant -----------
+    voting(coll, run_experiment, Config, card, dims, record)
 
+    for name in KERNELS:
+        rows[name]["launches_by_path"] = by_path[name]
+    check_contract(rows.values())
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,22 +6,25 @@ One control period:
 
 measure -> traffic info (reference trajectory, occupied areas, reachable
 sets; on a road also predicted lanelets and boundary segments, and the
-reachable sets bounded to the lane corridor) -> couple (reachable-set
-overlap) -> prioritize (constant) -> weigh (distance) -> greedy cut ->
-Kahn levels -> dataflow chunk schedule -> plan each chunk of vehicles as
-one batched beam search against the obstacle families (outline crossing
-or SAT, as ``Config.use_non_convex_obstacles`` says) -> exhaustion and
-fallback handling -> apply. Road (commonroad) and free-space (circle)
-scenarios both run.
+reachable sets bounded to the lane corridor) -> couple (none, full,
+distance or reachable-set overlap) -> prioritize (constant, coloring or
+FCA) -> solve: weigh (constant or distance) -> greedy cut -> Kahn levels
+-> dataflow chunk schedule -> plan each chunk of vehicles as one batched
+beam search against the obstacle families (outline crossing or SAT, as
+``Config.use_non_convex_obstacles`` says) -> exhaustion and fallback
+handling -> apply. The optimal and explorative priority modes solve
+several directed couplings a step and vote per coupling subgraph. Road
+(commonroad), free-space (circle) and mixed scenarios run, with static
+obstacles where the scenario has them.
 
-Configurations outside this path (other coupling, priority or weight
-strategies, HDVs, static obstacles, sampled or centralized search, the
-dense level loop) are not ported yet and raise NotImplementedError.
+Random priorities and weights, HDVs, sampled and centralized search and
+the dense level loop are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -39,7 +42,13 @@ from pdmpc_torch.models.bicycle import VEHICLE_LENGTH, VEHICLE_WIDTH
 from pdmpc_torch.models.mpa import MpaTensors
 from pdmpc_torch.ops import geometry as geo
 from pdmpc_torch.ops.collision import SegmentsPre, precompute_segments
-from pdmpc_torch.ops.search import Obstacles, pad_polys_to_vo, plan_trajectory
+from pdmpc_torch.ops.search import (
+    Obstacles,
+    PlanResult,
+    _sat_separates_batch,
+    pad_polys_to_vo,
+    plan_trajectory,
+)
 from pdmpc_torch.parallel import graph as graph_ops
 from pdmpc_torch.parallel.comm import LocalComm
 from pdmpc_torch.scenarios.scenario import VO, ScenarioTensors
@@ -87,7 +96,7 @@ class StepInfo(NamedTuple):
     levels: torch.Tensor         # [N]
     priorities: torch.Tensor     # [N]
     reference_points: torch.Tensor  # [N, Hp, 2]
-    priority_permutation: torch.Tensor  # [N] (always 0 on this path)
+    priority_permutation: torch.Tensor  # [N] chosen candidate row (0 = base)
 
 
 def initial_state(scenario: ScenarioTensors, hp: int) -> StepState:
@@ -104,30 +113,24 @@ def initial_state(scenario: ScenarioTensors, hp: int) -> StepState:
     )
 
 
-def check_main_path(cfg: Config, scenario: ScenarioTensors) -> None:
-    """Raise NotImplementedError for anything outside the ported path."""
-    wanted = [
-        (scenario.static_obstacles is None, "no static obstacles"),
-        (cfg.is_prioritized, "prioritized planning"),
-        (cfg.computation_mode == ComputationMode.sequential,
-         "computation_mode=sequential"),
-        (cfg.coupling == CouplingStrategies.reachable_set_coupling,
-         "reachable_set_coupling"),
-        (cfg.priority == PriorityStrategies.constant_priority,
-         "constant_priority"),
-        (cfg.weight == WeightStrategies.distance_weight, "distance_weight"),
-        (cfg.optimizer_type.is_optimal, "the optimal (beam) optimizer"),
-        (cfg.isDealPredictionInconsistency, "reachable-set avoidance"),
-        (cfg.constraint_from_successor
-         == ConstraintFromSuccessor.area_of_standstill,
-         "constraint_from_successor=area_of_standstill"),
-        (not cfg.manual_control_config.is_active, "no human-driven vehicles"),
+def check_main_path(cfg: Config) -> None:
+    """Raise NotImplementedError for anything the port does not run yet:
+    random priorities or weights, the sampled optimizer, human-driven
+    vehicles, centralized planning and the parallel computation mode."""
+    refused = [
+        (not cfg.is_prioritized, "centralized planning"),
+        (cfg.computation_mode != ComputationMode.sequential,
+         f"computation_mode={cfg.computation_mode.value}"),
+        (cfg.priority == PriorityStrategies.random_priority,
+         "random_priority"),
+        (cfg.weight == WeightStrategies.random_weight, "random_weight"),
+        (not cfg.optimizer_type.is_optimal, "the sampled optimizer"),
+        (cfg.manual_control_config.is_active, "human-driven vehicles"),
     ]
-    missing = [what for ok, what in wanted if not ok]
+    missing = [what for no, what in refused if no]
     if missing:
         raise NotImplementedError(
-            "pdmpc_torch ports only the main path so far; this run needs "
-            + ", ".join(missing)
+            "pdmpc_torch does not run " + ", ".join(missing) + " yet"
         )
 
 
@@ -199,34 +202,292 @@ def _reachable_sets_at_pose(mpa: MpaTensors, pose, trim):
 # ---------------------------------------------------------------------------
 
 
-def _couple(reachable_sets):
-    """Adjacency [N, N] bool: overlap area of the last-step reachable sets
-    above COUPLING_AREA_THRESHOLD (ReachableSetCoupler.m:39-48). Each
-    unordered pair is computed once and mirrored, so the adjacency is
-    exactly symmetric."""
+def _couple(cfg: Config, reachable_sets, poses, max_mpa_speed,
+            pred_lanelets=None, adjacency_lanelets=None):
+    """Adjacency [N, N] bool from the configured coupling strategy.
+
+    ``pred_lanelets`` [N, Lp] (1-based ids, 0 = none) and
+    ``adjacency_lanelets`` [L+1, L+1] enable DistanceCoupler.m:28-31's
+    lanelet-adjacency prefilter on road scenarios.
+    """
     n = reachable_sets.shape[0]
+    dev = reachable_sets.device
+    if cfg.coupling == CouplingStrategies.no_coupling:
+        return torch.zeros((n, n), dtype=torch.bool, device=dev)
+    if cfg.coupling == CouplingStrategies.full_coupling:
+        return ~torch.eye(n, dtype=torch.bool, device=dev)
+    if cfg.coupling == CouplingStrategies.distance_coupling:
+        # DistanceCoupler.m: coupled iff distance <= 2 * v_max * dt * Hp
+        d = graph_ops.pairwise_distances(poses[:, :2])
+        max_distance = 2.0 * max_mpa_speed * cfg.dt_seconds * cfg.Hp
+        coupled = (d <= max_distance) & ~torch.eye(n, dtype=torch.bool,
+                                                    device=dev)
+        if pred_lanelets is not None and adjacency_lanelets is not None:
+            # is_any_lanelet_adjacent (DistanceCoupler.m:56-63): some pair
+            # of (current + predicted) lanelets is adjacent; row and column
+            # 0 of the matrix are all False, so padded id 0 is inert
+            pair_adj = adjacency_lanelets[pred_lanelets[:, None, :, None],
+                                          pred_lanelets[None, :, None, :]]
+            coupled &= pair_adj.any(dim=-1).any(dim=-1)
+        return coupled
+    # reachable_set_coupling: overlap area of the last-step reachable sets
+    # above the threshold (ReachableSetCoupler.m:39-48); each unordered
+    # pair is computed once and mirrored, so the adjacency is symmetric
     last = reachable_sets[:, -1]                             # [N, K, 2]
-    iu, ju = torch.triu_indices(n, n, 1, device=last.device)
+    iu, ju = torch.triu_indices(n, n, 1, device=dev)
     pair_area = geo.convex_intersection_area_clip(last[iu], last[ju])
-    adj = torch.zeros((n, n), dtype=torch.bool, device=last.device)
+    adj = torch.zeros((n, n), dtype=torch.bool, device=dev)
     adj[iu, ju] = pair_area > COUPLING_AREA_THRESHOLD
     return adj | adj.T
 
 
-def _prioritize(adjacency):
-    """Constant priorities (ConstantPrioritizer.m) and the directed
-    coupling they induce."""
-    priorities = graph_ops.constant_priorities(adjacency.shape[0],
-                                               adjacency.device)
+def _calculate_yaw(points):
+    """Yaw along point sequences [..., Hp, 2] -> [..., Hp]: forward
+    difference at the first point, backward at the last, central between
+    (utility/calculate_yaw.m)."""
+    nxt = torch.roll(points, -1, dims=-2)
+    prv = torch.roll(points, 1, dims=-2)
+    d = nxt - prv
+    d[..., -1, :] = (points - prv)[..., -1, :]
+    d[..., 0, :] = (nxt - points)[..., 0, :]
+    return torch.atan2(d[..., 1], d[..., 0])
+
+
+def _fca_priorities(cfg: Config, adjacency, ref_points):
+    """Future-Collision-Assessment priorities (FcaPrioritizer.m:24-93):
+    vehicle rectangles (with offset) along each reference, yawed along it;
+    a coupled pair's collisions are counted step by step with SAT; more
+    collisions plan earlier, ties by index."""
+    yaws = _calculate_yaw(ref_points)                        # [N, Hp]
+    shapes = geo.transformed_rectangle(
+        ref_points[..., 0], ref_points[..., 1], yaws,
+        VEHICLE_LENGTH + 2 * cfg.offset, VEHICLE_WIDTH + 2 * cfg.offset,
+    )                                                        # [N, Hp, 4, 2]
+    # SAT in the XLA form, as the reference's Precision.HIGHEST projection
+    # matmul compiles on XLA:CPU; touching counts as a collision
+    hits = ~_sat_separates_batch(shapes[:, None], shapes[None, :])  # [N,N,Hp]
+    counts = torch.where(adjacency, hits.sum(dim=-1), 0)
+    order = torch.sort(-counts.sum(dim=1), stable=True).indices
+    return graph_ops.ranks_of(order)
+
+
+def _prioritize(cfg: Config, adjacency, ref_points):
+    """Priorities and the directed coupling they induce (Prioritizer.m);
+    optimal and explorative modes start from constant priorities
+    (Prioritizer.m:26-29)."""
+    n = adjacency.shape[0]
+    if cfg.priority == PriorityStrategies.FCA_priority:
+        priorities = _fca_priorities(cfg, adjacency, ref_points)
+    elif cfg.priority == PriorityStrategies.coloring_priority:
+        priorities = graph_ops.coloring_priorities(adjacency)
+    elif cfg.priority in (PriorityStrategies.constant_priority,
+                          PriorityStrategies.optimal_priority,
+                          PriorityStrategies.explorative_priority):
+        priorities = graph_ops.constant_priorities(n, adjacency.device)
+    else:
+        raise NotImplementedError(f"priority strategy {cfg.priority.value}")
     directed = graph_ops.directed_coupling_from_priorities(adjacency,
                                                            priorities)
     return priorities, directed
 
 
 def _weigh(cfg: Config, directed, poses, max_mpa_speed):
-    """Distance weights (DistanceWeigher.m)."""
-    return graph_ops.distance_weights(directed, poses[:, :2], max_mpa_speed,
-                                      cfg.dt_seconds, cfg.Hp)
+    """Constant (ConstantWeigher.m) or distance (DistanceWeigher.m)
+    weights of the directed coupling."""
+    if cfg.weight == WeightStrategies.constant_weight:
+        return graph_ops.constant_weights(directed)
+    if cfg.weight == WeightStrategies.distance_weight:
+        return graph_ops.distance_weights(directed, poses[:, :2],
+                                          max_mpa_speed, cfg.dt_seconds,
+                                          cfg.Hp)
+    raise NotImplementedError(f"weight strategy {cfg.weight.value}")
+
+
+# ---------------------------------------------------------------------------
+# Multi-permutation solvers (optimal / explorative priority modes)
+# ---------------------------------------------------------------------------
+
+# Cost charged per exhausted vehicle when voting between candidates
+# (pdmpc_tpu controller._EXHAUSTED_PENALTY).
+_EXHAUSTED_PENALTY = 1e9
+
+
+def _solve_optimal(cfg: Config, comm, solve, adjacency):
+    """optimal_priority (PrioritizedOptimalController.m +
+    Prioritizer.unique_priorities): every unordered coupled pair gets a bit
+    equal to its edge rank within its weakly-connected component, and
+    candidate row p of the [P, N, N] stack orients each edge by that bit
+    of p, P = 2^e_cap. A component with up to e_cap edges has all its
+    orientations in the stack; cyclic ones are masked out of its vote (row
+    0, all forward, is always acyclic). Each component then adopts its
+    cost-minimal row (pdmpc_tpu controller._solve_optimal)."""
+    n = adjacency.shape[0]
+    dev = adjacency.device
+    e_cap = max(1, int(cfg.max_priority_permutations).bit_length() - 1)
+    e_cap = max(1, min(e_cap, n * (n - 1) // 2))
+    p_cnt = 1 << e_cap
+
+    belonging = graph_ops.weak_components(adjacency)        # [N]
+    iu, ju = torch.triu_indices(n, n, 1, device=dev)         # pair slots
+    edge_present = adjacency[iu, ju]                         # [S]
+    edge_comp = belonging[iu]
+    s = iu.shape[0]
+    # rank of each present edge within its component (earlier slots first)
+    same_comp = edge_comp[None, :] == edge_comp[:, None]
+    before = torch.ones((s, s), dtype=torch.bool, device=dev).tril(-1)
+    rank = (same_comp & before & edge_present[None, :]).sum(dim=1)
+    bit = rank % e_cap
+    p_idx = torch.arange(p_cnt, device=dev)
+    # bit clear = forward (i < j): row 0 is the all-forward orientation,
+    # the reference's first enumerated candidate
+    forward = ((p_idx[:, None] >> bit[None, :]) & 1) == 0    # [P, S]
+    directed_stack = torch.zeros((p_cnt, n, n), dtype=torch.bool,
+                                 device=dev)
+    directed_stack[:, iu, ju] = forward & edge_present[None, :]
+    directed_stack[:, ju, iu] = ~forward & edge_present[None, :]
+
+    # a component is invalid in row p iff its orientation leaves a cycle
+    # (Kahn keeps cycle members at level 0)
+    stuck = graph_ops.kahn_levels(directed_stack)[0] == 0    # [P, N]
+    onehot_b = belonging[:, None] == torch.arange(n, device=dev)[None, :]
+    invalid_pc = (stuck[:, :, None] & onehot_b[None]).any(dim=1)
+
+    # a component with more than e_cap edges shares bit positions and is
+    # explored only in part (the reference enumerates all 2^edges)
+    edges_per_comp = (edge_present[:, None]
+                      & (edge_comp[:, None] == torch.arange(n, device=dev))
+                      ).sum(dim=0)
+    max_edges = int(edges_per_comp.max()) if s else 0
+    if max_edges > e_cap:
+        warnings.warn(
+            f"optimal_priority: a coupling subgraph has {max_edges} edges "
+            f"> e_cap={e_cap}; orientation enumeration is partial (raise "
+            f"max_priority_permutations)", stacklevel=2)
+    return _vote_per_subgraph(comm, solve, directed_stack, belonging,
+                              invalid_pc)
+
+
+def _subgraph_totals(cost_g, belonging):
+    """Vote totals [P, N-labels]: each candidate row's costs ``cost_g``
+    [N, P] summed over the members of each subgraph label, rounded to 8
+    decimals (PrioritizedOptimalController.m:104).
+
+    The reference contracts with a one-hot matmul on XLA:CPU, and which
+    order that sums the vehicles in depends on the shape: P >= 2 and
+    N in {8, 11, 12, 14, 15, 16} (and N in {4, 6, 7} once P >= 8) take
+    four lanes (lane j sums vehicles j, j + 4, ... of the first 4*(N//4),
+    the lanes are added (l0 + l1) + (l2 + l3), then the rest in order);
+    every other shape sums the vehicles one after another. Both orders are
+    spelled out here so the totals equal the reference's bit for bit
+    (tests/test_torch_strategies.py holds them); non-members add exact
+    zeros in place. The rounding is ``jnp.round``'s as XLA compiles it:
+    round half to even of x * 1e8, times the f32 constant 1e-8 (XLA turns
+    the division by 1e8 into that product).
+    """
+    n, p_cnt = cost_g.shape
+    onehot = (belonging[:, None] == torch.arange(n, device=cost_g.device)
+              ).to(cost_g.dtype)                             # [N, labels]
+    terms = cost_g.T[:, :, None] * onehot[None]              # [P, N, labels]
+    lanes = p_cnt >= 2 and (n in (8, 11, 12, 14, 15, 16)
+                            or (p_cnt >= 8 and n in (4, 6, 7)))
+    full = 4 * (n // 4) if lanes else 0
+    total = None
+    if full:
+        lane = [terms[:, j] for j in range(4)]
+        for i in range(4, full):
+            lane[i % 4] = lane[i % 4] + terms[:, i]
+        total = (lane[0] + lane[1]) + (lane[2] + lane[3])
+    rest = None
+    for i in range(full, n):
+        rest = terms[:, i] if rest is None else rest + terms[:, i]
+    if total is None:
+        total = rest
+    elif rest is not None:
+        total = total + rest
+    return torch.round(total * 1e8) * 1e-8
+
+
+def _vote_per_subgraph(comm, solve, directed_stack, belonging, invalid_pc,
+                       solve_rows=None):
+    """Solve every candidate directed coupling and adopt, per
+    weakly-connected subgraph, the cost-minimal candidate: the shared
+    voting tail of the optimal and explorative modes (the SolutionCost
+    exchange and PrioritizedExplorativeController.choose_solution:146-176;
+    pdmpc_tpu controller._vote_per_subgraph).
+
+    ``invalid_pc`` [P, N-labels]: candidate p may not win that label's
+    subgraph. ``solve_rows`` (default: all) are the rows solved; a row
+    left out must be invalid for every label, and never wins.
+    Returns (planned, planned_shapes, sequential, levels, priorities,
+    directed, chosen row [N])."""
+    p_cnt, n = directed_stack.shape[:2]
+    rows = torch.arange(n, device=directed_stack.device)
+    if solve_rows is None:
+        solve_rows = range(p_cnt)
+    solved = {p: solve(directed_stack[p]) for p in solve_rows}
+    first = solved[min(solved)]
+    stacked = [solved.get(p, first) for p in range(p_cnt)]
+    planned_s = PlanResult(*(torch.stack(f) for f in
+                             zip(*(s[0] for s in stacked))))
+    shapes_s = torch.stack([s[1] for s in stacked])
+    seq_s = torch.stack([s[2] for s in stacked])
+
+    # exhausted plans carry cost = inf: clamp to the finite penalty before
+    # the vote (inf * 0 in the sum would poison every other subgraph)
+    cost_l = torch.where(planned_s.is_exhausted,
+                         torch.full_like(planned_s.cost, _EXHAUSTED_PENALTY),
+                         planned_s.cost)                     # [P, N]
+    totals = _subgraph_totals(comm.gather_veh(cost_l.T), belonging)
+    totals = torch.where(invalid_pc, torch.full_like(totals, torch.inf),
+                         totals)
+    # first minimum per label, as jnp.argmin
+    best = totals.amin(dim=0, keepdim=True)
+    p_idx = torch.arange(p_cnt, device=totals.device)[:, None]
+    chosen_per_label = torch.where(totals == best, p_idx, p_cnt).amin(dim=0)
+    chosen_g = chosen_per_label[belonging]                   # [N]
+    chosen_l = comm.local_slice(chosen_g)
+
+    local_rows = torch.arange(comm.n_local, device=rows.device)
+    planned = PlanResult(*(x[chosen_l, local_rows] for x in planned_s))
+    shapes_g = shapes_s[chosen_g, rows]
+    sequential = seq_s[chosen_g, rows]
+    directed_comb = directed_stack[chosen_g, rows]
+    levels, _ = graph_ops.kahn_levels(sequential)
+    # winning priorities kept for the next step: vehicles ranked by
+    # (subgraph label, level within it, index) (choose_solution, :165-172)
+    key = belonging * (n * n) + levels * n + rows
+    priorities = graph_ops.ranks_of(torch.argsort(key))     # distinct keys
+    return (planned, shapes_g, sequential, levels, priorities,
+            directed_comb, chosen_l)
+
+
+def _solve_explorative(cfg: Config, comm, solve, directed, sequential0,
+                       levels0, max_num_cls: int):
+    """explorative_priority (arXiv:2501.10781,
+    PrioritizedExplorativeController.m): one prioritization per
+    computation level, from cyclic shifts of the levels (a Latin square,
+    :241-309); coupling edges whose shifted levels invert are swapped
+    (:311-319), and each weakly-connected subgraph of the cut sequential
+    graph adopts its cost-minimal shift (:146-176).
+
+    The reference solves all ``max_num_cls`` rows and masks the shifts
+    beyond the level count out of the vote; those can never win, so only
+    the valid shifts are solved here (one solve a computation level)."""
+    n = directed.shape[0]
+    dev = directed.device
+    l_max = max(max_num_cls, 1)
+    n_levels = max(int(levels0.max()), 1)
+    belonging = graph_ops.weak_components(sequential0)      # [N]
+    coupled = directed | directed.T
+    p = torch.arange(l_max, device=dev)[:, None]
+    lv = ((levels0[None] - 1 + p) % n_levels) + 1            # [P, N]
+    lower = lv[:, :, None] < lv[:, None, :]
+    equal = lv[:, :, None] == lv[:, None, :]
+    directed_stack = (coupled & lower) | (directed & equal)  # [P, N, N]
+    invalid_pc = (p >= n_levels).expand(l_max, n)
+    return _vote_per_subgraph(comm, solve, directed_stack, belonging,
+                              invalid_pc, solve_rows=range(min(n_levels,
+                                                               l_max)))
 
 
 def compact_schedule(levels: torch.Tensor, c_chunk: int,
@@ -275,7 +536,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                           scenario: ScenarioTensors):
     """Build ``step(state, k) -> (state, info)`` for the prioritized
     single-program path (PrioritizedSequentialController semantics)."""
-    check_main_path(cfg, scenario)
+    check_main_path(cfg)
     n = scenario.n_vehicles
     hp = mpa.Hp
     dt = cfg.dt_seconds
@@ -290,6 +551,14 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     # obstacle-geometry dispatch (OptimizerInterface.m:36-46): outline
     # crossing for road scenarios, SAT for the circle (or as overridden)
     non_convex = cfg.use_non_convex_obstacles
+    use_reachability = cfg.isDealPredictionInconsistency
+    successor_mode = cfg.constraint_from_successor
+    # static scenario obstacles join every vehicle's obstacle set at every
+    # step (get_all_obstacles.m:17)
+    static = scenario.static_obstacles
+    if static is not None:
+        static_polys = static[:, None].expand(-1, hp, VO, 2)
+        static_mask = scenario.static_obstacle_mask[None].expand(n, -1)
 
     def step(state: StepState, k: int):
         # ---- local traffic info ------------------------------------------
@@ -298,17 +567,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         )
         reachable_sets = _reachable_sets_at_pose(mpa, state.pose,
                                                  state.trim)  # [N, Hp, K, 2]
-        seg_pre = None
+        seg_pre = pred_lanelets = None
         if road is not None:
             # predicted lanelets -> boundary segments and corridor rings
             # (get_predicted_lanelets.m + get_lanelets_boundary.m)
             lane_of = scenario.segment_lanelet               # [N, P-1]
             ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
                              lane_of.gather(1, seg_idx)], dim=1)  # [N, Hp+1]
-            uids = _unique_padded(ids, _n_predicted_lanelets(hp))
-            bnd_segs = road.boundary_segments[uids].reshape(n, -1, 2, 2)
-            bnd_mask = road.boundary_seg_mask[uids].reshape(n, -1)
-            corridor_rings = road.corridor_rings[uids]       # [N, L, R, 2]
+            pred_lanelets = _unique_padded(ids, _n_predicted_lanelets(hp))
+            bnd_segs = road.boundary_segments[pred_lanelets].reshape(
+                n, -1, 2, 2)
+            bnd_mask = road.boundary_seg_mask[pred_lanelets].reshape(n, -1)
+            corridor_rings = road.corridor_rings[pred_lanelets]  # [N,L,R,2]
             # segment geometry is layer- and chunk-invariant: one bundle
             # per step
             seg_pre = precompute_segments(bnd_segs, bnd_mask)
@@ -322,67 +592,128 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         occupied_offset = _occupied_area(state.pose, cfg.offset)
         occupied_no_offset = _occupied_area(state.pose, 0.0)
 
-        # ---- coupling graph, priorities, weights, cut, levels ------------
-        pose_g, trim_g, rs_g, occupied_offset_g = comm.gather_tree(
-            (state.pose, state.trim, reachable_sets, occupied_offset)
+        # ---- traffic exchange, coupling graph and priorities -------------
+        (pose_g, trim_g, rs_g, ref_points_g, occupied_offset_g,
+         prev_shapes_g, prev_valid_g, pred_lanelets_g) = comm.gather_tree((
+             state.pose, state.trim, reachable_sets, ref_points,
+             occupied_offset, state.prev_shapes, state.prev_valid,
+             pred_lanelets))
+        adjacency = _couple(
+            cfg, rs_g, pose_g, max_mpa_speed, pred_lanelets=pred_lanelets_g,
+            adjacency_lanelets=(road.adjacency_lanelets
+                                if road is not None else None),
         )
-        adjacency = _couple(rs_g)
-        priorities, directed = _prioritize(adjacency)
-        weighted = _weigh(cfg, directed, pose_g, max_mpa_speed)
-        sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
-        levels, _ = graph_ops.kahn_levels(sequential)
+        if cfg.priority == PriorityStrategies.explorative_priority:
+            # explorative mode keeps the previous step's winning
+            # prioritization (PrioritizedExplorativeController.m:146-176)
+            priorities = comm.gather_veh(state.priorities_prev)
+            directed = graph_ops.directed_coupling_from_priorities(
+                adjacency, priorities)
+        else:
+            priorities, directed = _prioritize(cfg, adjacency, ref_points_g)
 
         # ---- obstacle families (global, shared across vehicles) ----------
         # 0: this step's already-planned predicted areas; 1: parallel-
-        # coupling avoidance by reachable sets; 2: successors' standstill
-        # areas. Masks [N planning, N obstacle] per family.
-        rs_padded = pad_polys_to_vo(rs_g)                    # [N, Hp, VO, 2]
-        standstill = pad_polys_to_vo(occupied_offset_g)[:, None].expand(
-            n, hp, VO, 2)
-        seq_pred = sequential.T & not_self
-        par_pred = directed.T & ~sequential.T & not_self
-        standstill_mask = (directed
-                           & (mpa.trim_speed[trim_g] < STANDSTILL_SPEED)[None]
-                           & not_self)
-        obs_mask = torch.cat([seq_pred, par_pred, standstill_mask], dim=1)
-        n_obs = obs_mask.shape[1]
+        # coupling avoidance by reachable sets or, without
+        # isDealPredictionInconsistency, the previous plans shifted by a
+        # step; 2: the successor constraint (standstill areas or previous
+        # plans; none: no family); then the static obstacles. Masks are
+        # [N planning, N obstacle] per family; a family the configuration
+        # never uses is not in the tensors at all.
+        if (not use_reachability or successor_mode
+                == ConstraintFromSuccessor.area_of_previous_trajectory):
+            prev_shifted = _del_first_rpt_last(prev_shapes_g, 1)
+        parallel_polys = (pad_polys_to_vo(rs_g) if use_reachability
+                          else prev_shifted)             # [N, Hp, VO, 2]
 
-        # ---- compact chunk loop: every vehicle planned exactly once ------
-        # the schedule needs levels on the host: the step's one sync
-        schedule, n_chunks = compact_schedule(levels.cpu(), c_chunk,
-                                              sequential.cpu())
-        trims = torch.zeros((n, hp), dtype=torch.int64, device=dev)
-        poses = torch.zeros((n, hp, 3), device=dev)
-        cost = torch.zeros((n,), device=dev)
-        is_exhausted = torch.zeros((n,), dtype=torch.bool, device=dev)
-        n_expanded = torch.zeros((n,), dtype=torch.int64, device=dev)
-        planned_shapes = torch.zeros((n, hp, VO, 2), device=dev)
-        for row in schedule[:n_chunks].tolist():
-            # padded slots (-1) are not planned at all: no kernel work
-            idx = torch.tensor([i for i in row if i >= 0], device=dev)
-            nv = idx.shape[0]
-            obs_polys = torch.cat([planned_shapes, rs_padded, standstill])
-            obstacles = Obstacles(
-                polys=obs_polys.expand(nv, *obs_polys.shape),
-                mask=obs_mask[idx][:, :, None].expand(nv, n_obs, hp),
+        def solve(directed_p):
+            """One prioritized solve for a directed coupling: weigh ->
+            cut -> levels -> obstacle families -> compact chunk loop.
+            Returns (planned, planned_shapes [N, Hp, VO, 2], sequential,
+            levels); ``planned.shapes`` are the same padded areas."""
+            weighted = _weigh(cfg, directed_p, pose_g, max_mpa_speed)
+            sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
+            levels, _ = graph_ops.kahn_levels(sequential)
+            seq_pred = sequential.T & not_self
+            par_pred = directed_p.T & ~sequential.T & not_self
+            if not use_reachability:
+                par_pred = par_pred & prev_valid_g[None, :]
+            masks, polys = [seq_pred, par_pred], [parallel_polys]
+            if successor_mode == ConstraintFromSuccessor.area_of_standstill:
+                masks.append(directed_p & not_self & (
+                    mpa.trim_speed[trim_g] < STANDSTILL_SPEED)[None])
+                polys.append(pad_polys_to_vo(occupied_offset_g)[:, None]
+                             .expand(n, hp, VO, 2))
+            elif (successor_mode
+                  == ConstraintFromSuccessor.area_of_previous_trajectory):
+                masks.append(directed_p & prev_valid_g[None, :] & not_self)
+                polys.append(prev_shifted)
+            if static is not None:
+                masks.append(static_mask)
+                polys.append(static_polys)
+            obs_mask = comm.local_slice(torch.cat(masks, dim=1))
+            n_obs = obs_mask.shape[1]
+
+            # ---- compact chunk loop: every vehicle planned once ----------
+            # the schedule needs levels on the host: one sync a solve
+            schedule, n_chunks = compact_schedule(levels.cpu(), c_chunk,
+                                                  sequential.cpu())
+            # the plans; their swept areas padded to VO vertices, as the
+            # obstacle family they become
+            planned = PlanResult(
+                trims=torch.zeros((n, hp), dtype=torch.int64, device=dev),
+                poses=torch.zeros((n, hp, 3), device=dev),
+                shapes=torch.zeros((n, hp, VO, 2), device=dev),
+                cost=torch.zeros((n,), device=dev),
+                is_exhausted=torch.zeros((n,), dtype=torch.bool, device=dev),
+                n_expanded=torch.zeros((n,), dtype=torch.int64, device=dev),
             )
-            result = plan_trajectory(
-                mpa, state.pose[idx], state.trim[idx], ref_points[idx],
-                v_ref[idx], obstacles, dt, cfg.beam_width,
-                segments_pre=(None if seg_pre is None else
-                              SegmentsPre(*(x[idx] for x in seg_pre))),
-                non_convex=non_convex,
-            )
-            trims[idx] = result.trims
-            poses[idx] = result.poses
-            cost[idx] = result.cost
-            is_exhausted[idx] = result.is_exhausted
-            n_expanded[idx] = result.n_expanded
-            planned_shapes[idx] = pad_polys_to_vo(result.shapes)
+            for row in schedule[:n_chunks].tolist():
+                # padded slots (-1) are not planned at all: no kernel work
+                idx = torch.tensor([i for i in row if i >= 0], device=dev)
+                nv = idx.shape[0]
+                obs_polys = torch.cat([planned.shapes, *polys])
+                obstacles = Obstacles(
+                    polys=obs_polys.expand(nv, *obs_polys.shape),
+                    mask=obs_mask[idx][:, :, None].expand(nv, n_obs, hp),
+                )
+                result = plan_trajectory(
+                    mpa, state.pose[idx], state.trim[idx], ref_points[idx],
+                    v_ref[idx], obstacles, dt, cfg.beam_width,
+                    segments_pre=(None if seg_pre is None else
+                                  SegmentsPre(*(x[idx] for x in seg_pre))),
+                    non_convex=non_convex,
+                )
+                result = result._replace(
+                    shapes=pad_polys_to_vo(result.shapes))
+                for field, value in zip(planned, result):
+                    field[idx] = value
+            return planned, planned.shapes, sequential, levels
+
+        if cfg.priority == PriorityStrategies.optimal_priority:
+            (planned, planned_shapes, sequential, levels, priorities,
+             directed, perm_chosen) = _solve_optimal(cfg, comm, solve,
+                                                     adjacency)
+        elif cfg.priority == PriorityStrategies.explorative_priority:
+            weighted0 = _weigh(cfg, directed, pose_g, max_mpa_speed)
+            sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
+            levels0, _ = graph_ops.kahn_levels(sequential0)
+            (planned, planned_shapes, sequential, levels, priorities,
+             directed, perm_chosen) = _solve_explorative(
+                cfg, comm, solve, directed, sequential0, levels0,
+                max_num_cls)
+        else:
+            planned, planned_shapes, sequential, levels = solve(directed)
+            perm_chosen = torch.zeros((n,), dtype=torch.int64, device=dev)
+        is_exhausted = planned.is_exhausted
 
         # ---- exhaustion handling (PrioritizedController.m:568-621) -------
-        # a standstill vehicle whose search exhausts stays put
-        stay_still_ok = is_exhausted & (mpa.trim_speed[state.trim] == 0.0)
+        # a standstill vehicle whose search exhausts stays put, unless no
+        # successor constraint holds its standstill area free
+        if successor_mode == ConstraintFromSuccessor.none:
+            stay_still_ok = torch.zeros_like(is_exhausted)
+        else:
+            stay_still_ok = is_exhausted & (mpa.trim_speed[state.trim] == 0.0)
         ss_poses = state.pose[:, None, :].expand(n, hp, 3)
         ss_trims = state.trim[:, None].expand(n, hp)
         ss_shapes = pad_polys_to_vo(occupied_no_offset)[:, None].expand(
@@ -422,10 +753,10 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                 torch.where(use_ss.reshape(shape), ss_v, planned_v),
             )
 
-        final_poses = choose(poses, ss_poses, fb_poses)
-        final_trims = choose(trims, ss_trims, fb_trims)
+        final_poses = choose(planned.poses, ss_poses, fb_poses)
+        final_trims = choose(planned.trims, ss_trims, fb_trims)
         final_shapes = choose(planned_shapes, ss_shapes, fb_shapes)
-        final_cost = choose(cost, ss_cost, fb_cost)
+        final_cost = choose(planned.cost, ss_cost, fb_cost)
 
         # ---- apply (Simulation.apply, plant/Simulation.m:86-117) ----------
         new_state = StepState(
@@ -435,7 +766,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             prev_trims=final_trims,
             prev_shapes=final_shapes,
             prev_valid=torch.ones((n,), dtype=torch.bool, device=dev),
-            priorities_prev=priorities,
+            priorities_prev=comm.local_slice(priorities),
         )
         info = StepInfo(
             poses=final_poses,
@@ -444,15 +775,14 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             cost=final_cost,
             needs_fallback=fallbacks,
             is_exhausted=is_exhausted,
-            n_expanded=n_expanded,
+            n_expanded=planned.n_expanded,
             adjacency=adjacency,
             directed_coupling=directed,
             directed_sequential=sequential,
             levels=levels,
             priorities=priorities,
             reference_points=ref_points,
-            priority_permutation=torch.zeros((n,), dtype=torch.int64,
-                                             device=dev),
+            priority_permutation=perm_chosen,
         )
         return new_state, info
 

@@ -299,9 +299,42 @@ int sm_count(int dev) {
   return count[dev];
 }
 
+// Dynamic shared memory a block may take without opting in: 48 KB less
+// the kernels' static shared memory (the warp counters, under 1 KB).
+constexpr size_t kSmemWithoutOptIn = 47 * 1024;
+
+// Raise `kernel`'s limit of dynamic shared memory on device `dev` to at
+// least `smem` bytes (sm_90 allows 227 KB a block). A full stage (3,072
+// segments, 48 KB, the 64-vehicle mixed fleet's three obstacle families)
+// plus the warp counters is past 48 KB and does not launch without it.
+// The limit only grows, so a launch of a larger stage seen before keeps
+// working. Called with blocks_per_sm's lock held.
+void allow_smem(const void* kernel, int dev, size_t smem) {
+  struct Entry {
+    const void* kernel;
+    int dev;
+    size_t smem;
+  };
+  constexpr int kEntries = 16;
+  static Entry limits[kEntries];
+  static int n_limits = 0;
+  int i = 0;
+  while (i < n_limits && !(limits[i].kernel == kernel && limits[i].dev == dev))
+    ++i;
+  if (i < n_limits && limits[i].smem >= smem) return;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  if (i < n_limits) {
+    limits[i].smem = smem;
+  } else if (n_limits < kEntries) {
+    limits[n_limits++] = Entry{kernel, dev, smem};
+  }
+}
+
 // Blocks of `kernel` resident on one SM of device `dev` with `smem` bytes
 // of stage each, cached per (kernel, device, stage size): a search stages
-// a handful of sizes.
+// a handful of sizes. A stage past kSmemWithoutOptIn first raises the
+// kernel's limit.
 int blocks_per_sm(const void* kernel, int dev, size_t smem) {
   struct Entry {
     const void* kernel;
@@ -320,6 +353,7 @@ int blocks_per_sm(const void* kernel, int dev, size_t smem) {
       return cache[i].blocks;
     }
   }
+  if (smem > kSmemWithoutOptIn) allow_smem(kernel, dev, smem);
   int blocks = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
                                                 smem);

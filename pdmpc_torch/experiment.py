@@ -26,18 +26,17 @@ from pdmpc_torch.controller import (
 from pdmpc_torch.models.mpa import Mpa, build_mpa
 from pdmpc_torch.scenarios.circle import create_circle_scenario
 from pdmpc_torch.scenarios.commonroad import create_commonroad_scenario
+from pdmpc_torch.scenarios.mixed import create_mixed_scenario
 from pdmpc_torch.scenarios.scenario import Scenario
 
 
 def create_scenario(options: Config, mpa: Mpa) -> Scenario:
-    """Scenario factory (scenarios/Scenario.m:75-88): circle and
+    """Scenario factory (scenarios/Scenario.m:75-88): circle, mixed and
     commonroad."""
     if options.scenario_type == ScenarioType.circle:
         return create_circle_scenario(options, mpa)
-    if options.scenario_type != ScenarioType.commonroad:
-        raise NotImplementedError(
-            f"scenario {options.scenario_type.value!r} is not ported yet"
-        )
+    if options.scenario_type == ScenarioType.mixed:
+        return create_mixed_scenario(options, mpa)
     return create_commonroad_scenario(options, mpa)
 
 
@@ -58,6 +57,10 @@ class ExperimentResult:
     @property
     def n_vehicles(self) -> int:
         return int(self.infos.cost.shape[-1])
+
+    @property
+    def max_number_of_computation_levels(self) -> int:
+        return int(self.infos.levels.max())
 
 
 def run_experiment(options: Config, device=None) -> ExperimentResult:

@@ -12,11 +12,24 @@ from __future__ import annotations
 
 
 class LocalComm:
-    """All vehicles in one program: gathers are the identity."""
+    """All vehicles in one program: gathers and slices are the identity."""
 
     def __init__(self, n_vehicles: int):
         self.n_vehicles = n_vehicles
 
+    @property
+    def n_local(self) -> int:
+        """Vehicles this program plans: all of them."""
+        return self.n_vehicles
+
     def gather_tree(self, tree):
         """Every vehicle's entries of each tensor in ``tree``."""
         return tree
+
+    def gather_veh(self, x):
+        """Every vehicle's entries of ``x`` (leading vehicle dim)."""
+        return x
+
+    def local_slice(self, x):
+        """This program's vehicles' entries of the global ``x``."""
+        return x

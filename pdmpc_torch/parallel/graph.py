@@ -1,7 +1,8 @@
-"""Coupling-graph algebra (main-path subset): leveling, priorities, weights,
-cutting and fallback propagation.
+"""Coupling-graph algebra: leveling, priorities, weights, cutting,
+components and fallback propagation.
 
-Torch twin of pdmpc_tpu/parallel/graph.py: integer/boolean matrix algebra
+Torch twin of pdmpc_tpu/parallel/graph.py (all but the random strategies
+and the host-side ``unique_priorities_np``): integer/boolean matrix algebra
 on [N, N] tensors; ``fori_loop``s become Python loops.
 """
 
@@ -15,20 +16,27 @@ from pdmpc_torch.ops.geometry import fma
 def kahn_levels(directed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Computation level (1-based) of each vehicle from a sequential DAG.
 
-    directed: [N, N] bool, entry (i, j) = edge i -> j. Returns (levels [N]
-    i64, is_dag bool). Vertices stuck in a cycle keep level 0.
+    directed: [..., N, N] bool, entry (i, j) = edge i -> j (leading dims
+    batch independent graphs). Returns (levels [..., N] i64, is_dag bool
+    [...]). Vertices stuck in a cycle keep level 0.
     Reference: utility/kahn.m:1-24.
     """
-    n = directed.shape[0]
+    n = directed.shape[-1]
     a = directed.to(torch.int64)
-    levels = torch.zeros((n,), dtype=torch.int64, device=directed.device)
-    sorted_mask = torch.zeros((n,), dtype=torch.bool, device=directed.device)
+    levels = torch.zeros(directed.shape[:-1], dtype=torch.int64,
+                         device=directed.device)
+    sorted_mask = torch.zeros_like(levels, dtype=torch.bool)
     for current in range(1, n + 1):
-        sources = ~sorted_mask & (a.sum(dim=0) == 0)
+        sources = ~sorted_mask & (a.sum(dim=-2) == 0)
         levels = torch.where(sources, current, levels)
-        a = torch.where(sources[:, None], 0, a)
+        a = torch.where(sources[..., :, None], 0, a)
         sorted_mask = sorted_mask | sources
-    return levels, sorted_mask.all()
+    return levels, sorted_mask.all(dim=-1)
+
+
+def number_of_computation_levels(directed: torch.Tensor) -> torch.Tensor:
+    """Reference: IterationData.m:87-89."""
+    return kahn_levels(directed)[0].max()
 
 
 def directed_coupling_from_priorities(adjacency: torch.Tensor,
@@ -39,21 +47,85 @@ def directed_coupling_from_priorities(adjacency: torch.Tensor,
     return adjacency.bool() & (priorities[:, None] < priorities[None, :])
 
 
+def ranks_of(order: torch.Tensor) -> torch.Tensor:
+    """Priorities 1..N from a vehicle order: ``order[r]`` gets r + 1."""
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(1, order.shape[0] + 1, dtype=order.dtype,
+                                device=order.device)
+    return ranks
+
+
+def priorities_from_directed_coupling(directed: torch.Tensor) -> torch.Tensor:
+    """Priorities (1..N) from a DAG in (Kahn level, vehicle index) order, a
+    stable topological order. Reference: Prioritizer.m:79-95."""
+    n = directed.shape[0]
+    levels, _ = kahn_levels(directed)
+    key = levels * n + torch.arange(n, device=directed.device)
+    return ranks_of(torch.argsort(key))                  # keys are distinct
+
+
 def constant_priorities(n: int, device=None) -> torch.Tensor:
     """priority = vehicle index. Reference: ConstantPrioritizer.m."""
     return torch.arange(1, n + 1, dtype=torch.int64, device=device)
+
+
+def coloring_priorities(adjacency: torch.Tensor) -> torch.Tensor:
+    """Graph-coloring priorities minimizing the number of computation
+    levels (ColoringPrioritizer.m:31-151): greedy coloring in SDO/LDO
+    vertex order, then the colors (levels) ordered by descending largest
+    member degree. Returns each vehicle's level rank as its priority.
+
+    Runs on the host, a Python loop over an [N, N] matrix: once a step,
+    and every tie breaks where the JAX function's does (``jnp.argmax`` and
+    ``jnp.argmin`` take the first extremum, the stable level sort keeps
+    the color order), spelled out here instead of left to a device's
+    argmax. The result goes back to the adjacency's device.
+    """
+    adj = adjacency.bool().cpu().tolist()
+    n = len(adj)
+    degree = [sum(row[j] for row in adj) for j in range(n)]
+    color = [1 if d == 0 else 0 for d in degree]       # isolated: color 1
+    for _ in range(n):
+        if all(color):
+            break
+        # saturation degree: distinct colors among the neighbors
+        neigh = [{color[j] for j in range(n) if adj[i][j] and color[j]}
+                 for i in range(n)]
+        # max saturation, then max degree, then the lowest index
+        score = [len(neigh[i]) * (n + 1) + degree[i] if not color[i] else -1
+                 for i in range(n)]
+        v = score.index(max(score))
+        color[v] = next(c for c in range(1, n + 1) if c not in neigh[v])
+    # levels ordered by descending largest member degree, ties by color
+    level_deg = {c: max(degree[i] for i in range(n) if color[i] == c)
+                 for c in set(color)}
+    order = sorted(level_deg, key=lambda c: (-level_deg[c], c))
+    rank = {c: r + 1 for r, c in enumerate(order)}
+    return torch.tensor([rank[c] for c in color], dtype=torch.int64,
+                        device=adjacency.device)
+
+
+def constant_weights(directed: torch.Tensor) -> torch.Tensor:
+    """Reference: ConstantWeigher.m (weight 0.5 on every edge)."""
+    return directed.to(torch.float32) * 0.5
 
 
 def distance_weights(directed: torch.Tensor, positions: torch.Tensor,
                      max_mpa_speed, dt: float, hp: int) -> torch.Tensor:
     """weight = 1 - d / d_max with d_max = 2 * v_max * dt * Hp.
     Reference: DistanceWeigher.m."""
-    diff = positions[:, None, :] - positions[None, :, :]
-    # XLA:CPU's norm: sqrt(fma(dy, dy, dx * dx))
-    d = torch.sqrt(fma(diff[..., 1], diff[..., 1], diff[..., 0] * diff[..., 0]))
+    d = pairwise_distances(positions)
     max_distance = 2.0 * max_mpa_speed * dt * hp
     w = 1.0 - d / max_distance
     return torch.where(directed.bool(), w, torch.zeros_like(w))
+
+
+def pairwise_distances(positions: torch.Tensor) -> torch.Tensor:
+    """[N, N] distances between positions [N, 2], as XLA:CPU evaluates
+    ``jnp.linalg.norm`` of the differences: sqrt(fma(dy, dy, dx * dx))."""
+    diff = positions[:, None, :] - positions[None, :, :]
+    return torch.sqrt(fma(diff[..., 1], diff[..., 1],
+                          diff[..., 0] * diff[..., 0]))
 
 
 def greedy_cut(weighted_directed: torch.Tensor, max_num_cls: int,
@@ -97,6 +169,19 @@ def greedy_cut(weighted_directed: torch.Tensor, max_num_cls: int,
             reach = torch.maximum(reach, via)
             seq[r, c] = True
     return seq
+
+
+def weak_components(directed: torch.Tensor) -> torch.Tensor:
+    """Weakly-connected component labels [N] i64: each vertex carries the
+    smallest vertex index of its component (min-label propagation; the
+    conncomp of PrioritizedExplorativeController.m:206)."""
+    n = directed.shape[0]
+    sym = directed.bool() | directed.bool().T
+    labels = torch.arange(n, device=directed.device)
+    for _ in range(n):
+        neigh = torch.where(sym, labels[None, :], n)
+        labels = torch.minimum(labels, neigh.amin(dim=1))
+    return labels
 
 
 def fallback_closure(fallbacks: torch.Tensor, adjacency: torch.Tensor,

@@ -4,6 +4,7 @@ weights included, as distance weights beyond d_max are), plus the
 controller's compact schedule and unique compaction against their JAX
 twins."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,6 +87,72 @@ def test_graph_algebra(n, density, seed):
                                          0.2, 6))
     np.testing.assert_allclose(w_t, w_j, rtol=1e-6, atol=1e-7)
     np.testing.assert_array_equal(w_t != 0, w_j != 0)
+
+
+def strategy_graph(kind, n, seed):
+    """Symmetric coupling graphs of the prioritizers' inputs."""
+    rng = np.random.default_rng(seed)
+    if kind == "isolated":            # a few edges, most vertices alone
+        upper = np.zeros((n, n), dtype=bool)
+        upper[0, 1] = upper[2, 4] = True
+    elif kind == "complete":
+        upper = np.ones((n, n), dtype=bool)
+    elif kind == "bipartite":
+        side = rng.random(n) < 0.5
+        upper = (side[:, None] != side[None, :]) & (rng.random((n, n)) < 0.7)
+    elif kind == "dense":             # cr20-sized, as full coupling nears
+        upper = rng.random((n, n)) < 0.8
+    else:
+        upper = rng.random((n, n)) < 0.25
+    upper = np.triu(upper, 1)
+    return upper | upper.T
+
+
+GRAPHS = [("isolated", 9, 0), ("complete", 6, 1), ("bipartite", 10, 2),
+          ("bipartite", 20, 3), ("dense", 20, 4), ("random", 12, 5),
+          ("random", 20, 6), ("random", 3, 7)]
+
+
+@pytest.mark.parametrize("kind,n,seed", GRAPHS)
+def test_strategy_graph_algebra(kind, n, seed):
+    """coloring_priorities, weak_components, priorities_from_directed_
+    coupling, number_of_computation_levels and constant_weights equal
+    their JAX twins exactly."""
+    adj = strategy_graph(kind, n, seed)
+    t = torch.as_tensor
+    colors = tg.coloring_priorities(t(adj))
+    np.testing.assert_array_equal(
+        colors.numpy(),
+        np.asarray(jax.jit(jg.coloring_priorities)(jnp.asarray(adj))))
+    # a coloring: coupled vehicles never share a level
+    assert not (adj & (colors.numpy()[:, None] == colors.numpy()[None])).any()
+    directed = tg.directed_coupling_from_priorities(t(adj), colors).numpy()
+    for graph in (adj, directed):
+        np.testing.assert_array_equal(
+            tg.weak_components(t(graph)).numpy(),
+            np.asarray(jax.jit(jg.weak_components)(jnp.asarray(graph))))
+    np.testing.assert_array_equal(
+        tg.priorities_from_directed_coupling(t(directed)).numpy(),
+        np.asarray(jax.jit(jg.priorities_from_directed_coupling)(
+            jnp.asarray(directed))))
+    assert (int(tg.number_of_computation_levels(t(directed))) == int(
+        jax.jit(jg.number_of_computation_levels)(jnp.asarray(directed))))
+    w_t = tg.constant_weights(t(directed))
+    w_j = np.asarray(jg.constant_weights(jnp.asarray(directed)))
+    assert w_t.dtype == torch.float32
+    np.testing.assert_array_equal(w_t.numpy(), w_j)
+
+
+def test_kahn_levels_batched():
+    """Kahn levels of a stack of graphs equal each graph's own."""
+    rng = np.random.default_rng(11)
+    stack = np.stack([random_dag(rng, 7, 0.5)[2] for _ in range(4)])
+    stack[1, 3, 2] = stack[1, 2, 3] = True                  # a cycle
+    lv, dag = tg.kahn_levels(torch.as_tensor(stack))
+    for p in range(4):
+        lv_j, dag_j = jg.kahn_levels(jnp.asarray(stack[p]))
+        np.testing.assert_array_equal(lv[p].numpy(), np.asarray(lv_j))
+        assert bool(dag[p]) == bool(dag_j)
 
 
 def test_kahn_cycle():

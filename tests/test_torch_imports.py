@@ -44,15 +44,32 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
         run_experiment(Config(amount=3, T_end=0.2, beam_width=8))
 
 
-@pytest.mark.parametrize("what", ["coloring", "mixed"])
+@pytest.mark.parametrize("what", ["random_priority", "random_weight",
+                                  "sampled", "hdv", "centralized"])
 def test_unported_config_raises(what):
-    from pdmpc_torch import Config, PriorityStrategies, ScenarioType
+    """Random priorities and weights, the sampled optimizer, human-driven
+    vehicles and centralized planning are not ported yet: the entry point
+    refuses them."""
+    from pdmpc_torch import (
+        Config,
+        ManualControlConfig,
+        OptimizerType,
+        PriorityStrategies,
+        WeightStrategies,
+    )
     from pdmpc_torch.experiment import run_experiment
 
     kw, match = {
-        "coloring": (dict(priority=PriorityStrategies.coloring_priority),
-                     "constant_priority"),
-        "mixed": (dict(scenario_type=ScenarioType.mixed), "'mixed'"),
+        "random_priority": (dict(priority=PriorityStrategies.random_priority),
+                            "random_priority"),
+        "random_weight": (dict(weight=WeightStrategies.random_weight),
+                          "random_weight"),
+        "sampled": (dict(optimizer_type=OptimizerType.TpuSampled),
+                    "the sampled optimizer"),
+        "hdv": (dict(manual_control_config=ManualControlConfig(
+            is_active=True, amount=1, hdv_ids=(0,))),
+                "human-driven vehicles"),
+        "centralized": (dict(is_prioritized=False), "centralized planning"),
     }[what]
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(Config(amount=3, T_end=0.2, beam_width=8, **kw),

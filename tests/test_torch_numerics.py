@@ -123,6 +123,22 @@ def expressions(n, seed=0):
         "fma(ax, x, ay*y)": fma_exact(*np.broadcast_arrays(ax, px, ayy)),
         "rounded": rounded(axx.astype(np.float64) + ayy),
     })
+
+    # FCA's SAT (geometry._sat_half): a rectangle's 4 axes on 4 vertices
+    # by a Precision.HIGHEST matmul, vmapped over the rectangle pairs
+    rect_axes = rng.normal(size=(m, 4, 2)).astype(F32)
+    rects = rng.uniform(0, 4, (m, 4, 2)).astype(F32)
+    jm = jax.jit(jax.vmap(lambda a, v: jnp.matmul(
+        a, v.T, precision=jax.lax.Precision.HIGHEST)))(rect_axes, rects)
+    ax, ay = rect_axes[..., :, None, 0], rect_axes[..., :, None, 1]
+    px, py = rects[..., None, :, 0], rects[..., None, :, 1]
+    axx = rounded(ax.astype(np.float64) * px)
+    ayy = rounded(ay.astype(np.float64) * py)
+    out["FCA SAT projection matmul"] = (jm, {
+        "port: fma(ay, y, ax*x)": port_fma(*np.broadcast_arrays(ay, py, axx)),
+        "fma(ax, x, ay*y)": fma_exact(*np.broadcast_arrays(ax, px, ayy)),
+        "rounded": rounded(axx.astype(np.float64) + ayy),
+    })
     return out
 
 
@@ -150,7 +166,8 @@ def forms():
 @pytest.mark.parametrize("name", ["child x = c*dx - s*dy + x",
                                   "child y = s*dx + c*dy + y",
                                   "cost g + sum((p - ref)**2)",
-                                  "SAT projection einsum"])
+                                  "SAT projection einsum",
+                                  "FCA SAT projection matmul"])
 def test_port_placement_matches_xla(forms, name):
     want, placements = forms[name]
     want = np.asarray(want)
