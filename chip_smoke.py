@@ -57,17 +57,38 @@ Phases, any failure exits non-zero:
 12. voting: cr20 at beam 512 for 10 steps with constant, optimal (16
    orientations a step) and explorative priorities: collision-free; the
    step medians and the optimal and explorative ones' factors over the
-   constant one printed.
+   constant one printed;
+13. stage rounds: phase 2's comparison on bundles past one 48 KB stage
+   (outline 256 and 1,024 obstacles of 16 vertices, boundary 4,096 and
+   16,384 segments, SAT 128 and 640 obstacles), bit for bit at three
+   stage budgets and timed at each; then the 40-vehicle circle (120 SAT
+   obstacles, 128 padded) at beam 128, collision-free, and its fullest
+   chunk planned with kernels and with plain versions, every layer held;
+14. the slice at full width: cr20 with random priorities and weights
+   (beam 512, 20 steps; the lattice forms launch), cr20 with the sampled
+   search (256 rollouts, 20 steps; the road kernels' (cx, cy) forms
+   launch, their lattice forms do not) and the 10-vehicle circle sampled
+   (40 steps; SAT's (cx, cy) form): collision-free, every vehicle moves
+   more than 0.3 m, road vehicles on the road; then one sampled chunk of
+   each path with kernels and with plain versions, every layer's (cx, cy)
+   call held bit for bit and timed;
+15. the matrix goldens with random strategies or the sampled search:
+   mx03, mx10, mx11 and mx13 must match exactly, the six sampled cells
+   (mx02, mx04, mx05, mx09, mx12, mx14) must meet the gate and whether
+   they match exactly is printed; each run's launches checked.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
 JSON: per kernel the keys of the port's contract (phase 2's all-live
 numbers, launches from phases 3 and 5), ``live_mask``, ``path`` (phase 8,
 per layer and per plan; for the road kernels also ``path_mixed64``,
-phase 10's chunk), ``launches_per_step`` and
-``launches_by_path`` (launches and launches a step of every driven run of
-phases 3, 5 and 9 to 12); for SAT also ``lattice`` (phase 2's lattice
-form).
+phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
+``path_sampled`` (phase 14's sampled chunk, (cx, cy) form), ``oversize``
+(phase 13, per size and budget), ``launches_per_step`` and
+``launches_by_path`` (launches, launches a step and lattice-form launches
+of every driven run of phases 3, 5 and 9 to 15); for SAT also ``lattice``
+(phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
+and device ms of one step's threefry noise at cr20's sampled shape).
 """
 
 from __future__ import annotations
@@ -128,10 +149,11 @@ def rand_polys(rng, n, v, radius):
     return centers + np.stack([r * np.cos(ang), r * np.sin(ang)], axis=-1)
 
 
-def pad_obstacles(rng, cand, n_obs, share_every=3):
+def pad_obstacles(rng, cand, n_obs, share_every=3, radius=0.3):
     """[V, n_obs, VO, 2] obstacles padded by repeating the last vertex:
     every ``share_every``-th is a candidate polygon (exact touches, as on
-    the trim lattice), the others random polygons of 4 to 6 vertices."""
+    the trim lattice), the others random polygons of 4 to 6 vertices and
+    ``radius`` m."""
     v_count, c_count, va = cand.shape[:3]
     obs = np.zeros((v_count, n_obs, VO, 2))
     n_real = rng.integers(4, 7, size=(v_count, n_obs))
@@ -141,7 +163,7 @@ def pad_obstacles(rng, cand, n_obs, share_every=3):
                 poly = cand[v, rng.integers(c_count)]
                 n_real[v, o] = va
             else:
-                poly = rand_polys(rng, 1, n_real[v, o], 0.3)[0]
+                poly = rand_polys(rng, 1, n_real[v, o], radius)[0]
             obs[v, o, :n_real[v, o]] = poly[:n_real[v, o]]
             obs[v, o, n_real[v, o]:] = poly[n_real[v, o] - 1]
     return obs
@@ -158,38 +180,47 @@ def vertex_major(torch, cand, dev):
     return cxy[:, 0].contiguous(), cxy[:, 1].contiguous()
 
 
-def kernel_inputs(torch, dev):
+def kernel_inputs(torch, dev, n_obs=N_OBS, n_seg=N_SEG):
     """Road-path inputs: candidates [V, VA, C], obstacles [V, NO, VO],
     segments [V, S, 2, 2]: random polygons near each other, exact touches
     (shared vertices and edges, as on the trim lattice) and padded
-    degenerate edges."""
+    degenerate edges. Past the road path's counts (phase 13) the random
+    obstacles shrink and the segments shorten with their count, so that
+    the candidates meet about as many as at phase 2's."""
     rng = np.random.default_rng(SEED)
     cand = rand_polys(rng, V * C, VA, 0.15).reshape(V, C, VA, 2)
-    obs = pad_obstacles(rng, cand, N_OBS)
-    obs_mask = rng.random((V, N_OBS)) < 0.5
-    segs = rng.uniform([0.0, 0.0], [4.5, 4.0], size=(V, N_SEG, 2, 2))
+    obs = pad_obstacles(rng, cand, n_obs,
+                        radius=0.3 * min(1.0, (N_OBS / n_obs) ** 0.5))
+    obs_mask = rng.random((V, n_obs)) < 0.5
+    segs = rng.uniform([0.0, 0.0], [4.5, 4.0], size=(V, n_seg, 2, 2))
+    shrink = min(1.0, N_SEG / n_seg)
+    if n_seg > N_SEG:
+        segs[:, :, 1] = segs[:, :, 0] + rng.normal(0, 0.3 * shrink,
+                                                   (V, n_seg, 2))
     # every 4th segment is a candidate edge or starts at a candidate vertex
     for v in range(V):
-        for s in range(0, N_SEG, 4):
+        for s in range(0, n_seg, 4):
             p = cand[v, rng.integers(C)]
             segs[v, s, 0] = p[1]
             segs[v, s, 1] = p[2] if s % 8 == 0 else p[1] + rng.normal(
-                0, 0.2, 2)
-    seg_mask = rng.random((V, N_SEG)) < 0.8
+                0, 0.2 * shrink, 2)
+    seg_mask = rng.random((V, n_seg)) < 0.8
     return (*vertex_major(torch, cand, dev), tensor(torch, obs, dev),
             tensor(torch, obs_mask, dev, torch.bool), tensor(torch, segs, dev),
             tensor(torch, seg_mask, dev, torch.bool))
 
 
-def sat_obstacles(rng, cand):
-    """30 convex obstacles [V, 30, VO, 2] a vehicle for candidates ``cand``
-    [V, C, VA, 2]: every third a candidate, every third an edge-sharing
-    box (an exact touch), the rest random; and a mask with half of them
-    off."""
+def sat_obstacles(rng, cand, n_obs=N_OBS_SAT):
+    """``n_obs`` convex obstacles [V, n_obs, VO, 2] a vehicle for
+    candidates ``cand`` [V, C, VA, 2]: every third a candidate, every
+    third an edge-sharing box (an exact touch), the rest random (smaller
+    past phase 2's count, as in ``kernel_inputs``); and a mask with half
+    of them off."""
     v_count, c_count = cand.shape[:2]
-    obs = pad_obstacles(rng, cand, N_OBS_SAT)
+    obs = pad_obstacles(rng, cand, n_obs,
+                        radius=0.3 * min(1.0, (N_OBS_SAT / n_obs) ** 0.5))
     for v in range(v_count):
-        for o in range(1, N_OBS_SAT, 3):
+        for o in range(1, n_obs, 3):
             poly = cand[v, rng.integers(c_count)]
             a, b = poly[0], poly[1]
             normal = np.array([b[1] - a[1], a[0] - b[0]])
@@ -199,17 +230,17 @@ def sat_obstacles(rng, cand):
             box = np.stack([a, a + normal, b + normal, b])
             obs[v, o, :4] = box
             obs[v, o, 4:] = box[-1]
-    return obs, rng.random((v_count, N_OBS_SAT)) < 0.5
+    return obs, rng.random((v_count, n_obs)) < 0.5
 
 
-def sat_inputs(torch, dev):
+def sat_inputs(torch, dev, n_obs=N_OBS_SAT):
     """Circle-path inputs of the SAT kernel: convex candidates [V, 5, C]
     (every other one a 4-vertex area with its last vertex repeated, as the
     straight maneuvers are) and ``sat_obstacles`` for them."""
     rng = np.random.default_rng(SEED + 1)
     cand = rand_polys(rng, V * C, VA_SAT, 0.15).reshape(V, C, VA_SAT, 2)
     cand[:, ::2, -1] = cand[:, ::2, -2]
-    obs, mask = sat_obstacles(rng, cand)
+    obs, mask = sat_obstacles(rng, cand, n_obs)
     return (*vertex_major(torch, cand, dev), tensor(torch, obs, dev),
             tensor(torch, mask, dev, torch.bool))
 
@@ -487,6 +518,91 @@ def sat_lattice_run(torch, coll, dev):
                 ("live_mask", random_live(torch, shape, dev)))}
 
 
+# phase 13's oversize bundles: obstacles of 16 vertices (outline), boundary
+# segments, SAT obstacles; each set holds one stage past 47 KB that opts
+# in, and one that takes more than one round
+OVERSIZE = {"outline_hits": (256, 1024), "boundary_hits": (4096, 16384),
+            "sat_hits": (128, 640)}
+# stage budgets (bytes a round) timed on them, the wrappers' default
+# (ops.collision.STAGE_BYTES, 48 KB) first
+STAGE_BUDGETS = (48 * 1024, 96 * 1024, 200 * 1024)
+
+
+def oversize_bundles(torch, coll, dev):
+    """Phase 13, kernels: each kernel's (cx, cy) form on bundles past one
+    48 KB stage (``OVERSIZE``), all live, held bit for bit against its
+    plain version and timed at every budget of ``STAGE_BUDGETS`` (the
+    stage plan of each printed). Returns, per kernel, one record a size."""
+    out = {name: [] for name in KERNELS}
+    default = coll.STAGE_BYTES
+    for name in KERNELS:
+        fn, plain = getattr(coll, name), getattr(coll, name + "_plain")
+        for size in OVERSIZE[name]:
+            if name == "sat_hits":
+                cx, cy, obs, mask = sat_inputs(torch, dev, size)
+                pre = coll.precompute_obstacles(obs, mask)
+                entries, entry_bytes = pre.ox.shape[1], coll.sat_stage_bytes(
+                    pre.ox.shape[2])
+                bound = partial(sat_bound, pre=pre,
+                                cand_verts=distinct_vertices(
+                                    cx.transpose(1, 2), cy.transpose(1, 2)),
+                                in_bytes=4 * cx.numel() * 2
+                                + sat_bundle_bytes(pre))
+            else:
+                inputs = kernel_inputs(torch, dev, n_obs=size
+                                       if name == "outline_hits" else N_OBS,
+                                       n_seg=size if name == "boundary_hits"
+                                       else N_SEG)
+                cx, cy = inputs[:2]
+                if name == "outline_hits":
+                    pre = coll.precompute_outline(*inputs[2:4])
+                    entries = pre.ox.shape[1] * pre.ox.shape[2]
+                    n_active = pre.edge_ok.sum(dim=(1, 2))
+                    in_bytes = 4 * (cx.numel() * 2 + pre.ox.numel() * 3)
+                else:
+                    pre = coll.precompute_segments(*inputs[4:6])
+                    entries = pre.packed.shape[-1]
+                    n_active = pre.mask.sum(dim=1)
+                    in_bytes = 4 * (cx.numel() * 2 + pre.packed.numel()
+                                    + pre.mask.numel())
+                entry_bytes = coll.SEG_STAGE_BYTES
+                bound = partial(crossing_bound, n_active=n_active, va=VA,
+                                in_bytes=in_bytes)
+            want = plain(cx, cy, pre)
+            hit_share = float(want.float().mean())
+            if not 0.0 < hit_share < 1.0:
+                raise AssertionError(f"{name} oversize {size}: degenerate "
+                                     f"test input")
+            rec = {"size": size, "entries": entries,
+                   "hit_share": hit_share, "by_budget": {},
+                   "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre),
+                                         reps=3, warmup=1)}
+            rec["bound_ms"], rec["bound_by"] = bound(
+                torch.ones_like(want), ~want)
+            try:
+                for budget in STAGE_BUDGETS:
+                    coll.STAGE_BYTES = budget
+                    plan = coll.stage_plan(entries, entry_bytes, budget)
+                    label = (f"{name} oversize {size} (budget {budget} B: "
+                             f"{plan.cap} a round, {plan.bytes} B, at most "
+                             f"{plan.rounds} rounds)")
+                    compare(torch, label, fn(cx, cy, pre), want)
+                    rec["by_budget"][budget] = {
+                        **plan._asdict(),
+                        "ms": device_ms(torch, lambda: fn(cx, cy, pre))}
+                    print(f"kernel {label}: "
+                          f"{rec['by_budget'][budget]['ms']:.5f} ms",
+                          flush=True)
+            finally:
+                coll.STAGE_BYTES = default
+            rec["ms"] = rec["by_budget"][default]["ms"]
+            print(f"kernel {name} oversize {size}: hit share "
+                  f"{hit_share:.4f}, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.6f} ms", flush=True)
+            out[name].append(rec)
+    return out
+
+
 def vehicle_collisions(poses, length, width):
     """(step, i, j) where applied vehicle rectangles (no offset) overlap:
     SAT with touching counted as a collision, as tests/test_controller.py
@@ -519,18 +635,21 @@ def vehicle_collisions(poses, length, width):
 
 
 KERNELS = ("outline_hits", "boundary_hits", "sat_hits")
+# each kernel's lattice form, counted also on its own
+FORMS = tuple(name + "_lattice" for name in KERNELS)
 # golden of phase 9's headline run (cr20, coloring priorities, beam 256)
 HEADLINE_GOLDEN = "commonroad_20veh_coloring_tpu"
 
 
-def road_offroad(res, cfg, n_road):
+def road_offroad(res, cfg, n_road, route=True):
     """(step, vehicle) pairs among the first ``n_road`` vehicles whose
     applied pose center leaves the drivable corridor of its own
     reference-loop lanelets (tests/golden.py vehicle_centers_offroad on
-    the port's own road tables). A vehicle still at its start pose is not
-    counted: that pose is the first point of its centerline, on the edge
-    where its first lanelet's corridor begins, which the crossing-number
-    test may count either way."""
+    the port's own road tables) or, with ``route`` False, of every lanelet
+    of the map. A vehicle still at its start pose is not counted: that
+    pose is the first point of its centerline, on the edge where its first
+    lanelet's corridor begins, which the crossing-number test may count
+    either way."""
     import torch
 
     from pdmpc_torch.experiment import create_scenario
@@ -544,7 +663,8 @@ def road_offroad(res, cfg, n_road):
     centers = torch.as_tensor(res.infos.poses[:, :, 0, :2])  # [k, N, 2]
     bad = []
     for v in range(n_road):
-        ids = sorted(set(int(i) for i in sc.lanelet_indices[v]))
+        ids = (sorted(set(int(i) for i in sc.lanelet_indices[v])) if route
+               else list(range(rings.shape[0])))
         inside = point_in_ring(centers[:, v, None], rings[ids][None]).any(-1)
         start = torch.as_tensor(sc.start_poses[v, :2], dtype=centers.dtype)
         at_start = (centers[:, v] - start).abs().amax(dim=-1) < 1e-6
@@ -562,46 +682,61 @@ def step_line(res, launches):
                 f"{k} {v / res.n_steps:.2f}" for k, v in launches.items()))
 
 
-def counted_run(coll, run_experiment, cfg, label, launched):
+def counted_run(coll, run_experiment, cfg, label, launched, lattice=None):
     """Run ``cfg`` on the card with every launch counter zeroed first;
-    require the kernels in ``launched`` to launch and the others not to.
-    Returns (launch counts, result)."""
-    for name in KERNELS:
+    require the kernels in ``launched`` to launch and the others not to,
+    and, where ``lattice`` is given, their lattice forms to launch (True)
+    or not (False: the sampled search's (cx, cy) forms only). Returns
+    (launch counts, result); each form's count stays on its counter."""
+    for name in KERNELS + FORMS:
         getattr(coll, name).launches = 0
     res = run_experiment(cfg, device="cuda")
     launches = {name: getattr(coll, name).launches for name in KERNELS}
-    print(f"{label} launches: {launches}", flush=True)
+    forms = {name: getattr(coll, name).launches for name in FORMS}
+    print(f"{label} launches: {launches}, of them lattice form {forms}",
+          flush=True)
     for name in KERNELS:
         if (launches[name] > 0) != (name in launched):
             raise AssertionError(f"{label}: {name} launched "
                                  f"{launches[name]} times")
+        if (lattice is not None and name in launched
+                and (forms[name + "_lattice"] > 0) != lattice):
+            raise AssertionError(f"{label}: {name}'s lattice form launched "
+                                 f"{forms[name + '_lattice']} times")
     if not np.isfinite(res.infos.poses).all():
         raise AssertionError(f"{label}: non-finite poses")
     return launches, res
 
 
 def drive(coll, run_experiment, cfg, card, label, launched, dims,
-          min_moved=0.3, max_fallback_share=0.5, n_road=0):
+          min_moved=0.3, max_fallback_share=0.5, n_road=0, lattice=None,
+          route=True):
     """``counted_run`` of ``cfg``, then check it: collision-free, every
-    vehicle moves more than ``min_moved`` m, the fallback share below
-    ``max_fallback_share`` (None: printed only) and the first ``n_road``
-    vehicles on the road; print its step times. Returns the launch counts
-    and the result."""
-    launches, res = counted_run(coll, run_experiment, cfg, label, launched)
+    vehicle moves more than ``min_moved`` m (None: printed only), the
+    fallback share below ``max_fallback_share`` (None: printed only) and
+    the first ``n_road`` vehicles on the road: on their own route's
+    lanelets or, with ``route`` False, on the map's (the steps off the
+    route are then printed); print its step times. Returns the launch
+    counts and the result."""
+    launches, res = counted_run(coll, run_experiment, cfg, label, launched,
+                                lattice)
     poses = res.infos.poses[:, :, 0]                      # [k, N, 3]
     collisions = vehicle_collisions(poses, *dims)
     if collisions:
         raise AssertionError(f"{label}: vehicle collisions: "
                              f"{collisions[:10]}")
     moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
-    if not (moved > min_moved).all():
+    if min_moved is not None and not (moved > min_moved).all():
         raise AssertionError(f"{label}: stuck vehicles: moved {moved}")
     fb_share = float(res.infos.needs_fallback.mean())
     if max_fallback_share is not None and fb_share >= max_fallback_share:
         raise AssertionError(f"{label}: fallback share {fb_share}")
-    offroad = road_offroad(res, cfg, n_road) if n_road else []
+    offroad = road_offroad(res, cfg, n_road, route) if n_road else []
     if offroad:
         raise AssertionError(f"{label}: off the road: {offroad[:10]}")
+    if n_road and not route:
+        print(f"{label}: (step, vehicle) off its own route's lanelets, on "
+              f"the map's: {road_offroad(res, cfg, n_road)}", flush=True)
     solves = cfg.amount * res.n_steps / res.timings["control_loop"]
     print(f"{label} ({card}): beam {cfg.beam_width}, Hp {cfg.Hp}, "
           f"{res.n_steps} steps, {cfg.amount} vehicles, "
@@ -612,16 +747,18 @@ def drive(coll, run_experiment, cfg, card, label, launched, dims,
     return launches, res
 
 
-def golden_gate(run_experiment, cfg, name, coll=None, launched=None):
+def golden_gate(run_experiment, cfg, name, coll=None, launched=None,
+                exact_required=True, lattice=None):
     """The gate bench.py holds the TPU to (same fallback pattern as the CPU
     golden, total cost within 1%), and beyond it an exact match: trims
-    and levels equal, poses within 1e-4. With ``coll``, the run's launch
-    counts are checked as ``counted_run`` does and returned."""
+    and levels equal, poses within 1e-4 (printed only unless
+    ``exact_required``). With ``coll``, the run's launch counts are
+    checked as ``counted_run`` does and returned."""
     if coll is None:
         gold, launches = run_experiment(cfg, device="cuda"), None
     else:
         launches, gold = counted_run(coll, run_experiment, cfg, name,
-                                     launched)
+                                     launched, lattice)
     ref = load_golden(name)
     rel = behavior_gate(gold, ref, name)
     exact = (np.allclose(gold.infos.poses, ref["poses"], rtol=1e-7,
@@ -632,7 +769,7 @@ def golden_gate(run_experiment, cfg, name, coll=None, launched=None):
           f"{rel:.3e}, exact match {exact}"
           + (f"; {step_line(gold, launches)}" if launches else ""),
           flush=True)
-    if not exact:
+    if exact_required and not exact:
         raise AssertionError(f"{name}: trims, levels or poses differ from "
                              f"the golden")
     return launches, gold
@@ -656,10 +793,12 @@ def behavior_gate(res, ref, name):
 
 
 # search-module names of the collision checks that have a plain twin in
-# ops.collision, and the kernels' lattice forms among them
+# ops.collision, and the kernel each launches: the beam search calls the
+# lattice forms, the sampled search the (cx, cy) forms
 LATTICE = {"outline_hits_lattice": "outline_hits",
            "boundary_hits_lattice": "boundary_hits",
            "sat_hits_lattice": "sat_hits"}
+CXCY = {name: name for name in KERNELS}
 SWAPPED = KERNELS + tuple(LATTICE)
 
 
@@ -669,54 +808,57 @@ def active_slots(args, kwargs):
 
 
 def plans_with_plain_versions(torch, coll, run_experiment, cfg, label,
-                              rank=active_slots):
-    """Phase 7: record the planning chunks of a short run, take the one
-    ranked highest by ``rank(args, kwargs)`` (by default: the most active
-    obstacles), and plan it again twice: with the kernels, and with their
-    plain versions swapped into the search. The plans must be equal.
-    Returns the lattice-form calls of the plan with the kernels: (kernel
-    name, layer, lattice, live, bundle)."""
+                              rank=active_slots, planner="plan_trajectory",
+                              forms=LATTICE):
+    """Phase 7: record the planning chunks of a short run (calls of the
+    search's ``planner``), take the one ranked highest by ``rank(args,
+    kwargs)`` (by default: the most active obstacles), and plan it again
+    twice: with the kernels, and with their plain versions swapped into
+    the search. The plans must be equal. Returns the calls of the
+    collision checks ``forms`` (search-module name -> kernel) in the plan
+    with the kernels: (kernel name, layer, form name, call arguments)."""
     import pdmpc_torch.controller as ctl
     from pdmpc_torch.ops import search
 
     calls = []
+    plan = getattr(search, planner)
 
     def recording(*args, **kwargs):
         calls.append((args, kwargs))
-        return search.plan_trajectory(*args, **kwargs)
+        return plan(*args, **kwargs)
 
-    ctl.plan_trajectory = recording
+    setattr(ctl, planner, recording)
     try:
         run_experiment(cfg, device="cuda")
     finally:
-        ctl.plan_trajectory = search.plan_trajectory
+        setattr(ctl, planner, plan)
     args, kwargs = max(calls, key=lambda c: rank(*c))
     if not args[5].mask.any():
         raise AssertionError(f"{label}: no chunk planned against obstacles")
 
-    lattice_calls = []
+    form_calls = []
     swapped = {name: getattr(search, name) for name in SWAPPED}
 
     def recorder(name, fn):
-        def call(lat, live, pre):
-            layer = sum(c[0] == LATTICE[name] for c in lattice_calls)
-            lattice_calls.append((LATTICE[name], layer, lat, live.clone(),
-                                  pre))
-            return fn(lat, live, pre)
+        def call(*a):
+            layer = sum(c[0] == forms[name] for c in form_calls)
+            form_calls.append((forms[name], layer, name, tuple(
+                x.clone() if torch.is_tensor(x) else x for x in a)))
+            return fn(*a)
         return call
 
-    for name in LATTICE:
+    for name in forms:
         setattr(search, name, recorder(name, swapped[name]))
     try:
-        with_kernels = search.plan_trajectory(*args, **kwargs)
+        with_kernels = plan(*args, **kwargs)
     finally:
-        for name in LATTICE:
+        for name in forms:
             setattr(search, name, swapped[name])
     for name in SWAPPED:
         setattr(search, name, getattr(coll, name + "_plain"))
     try:
         launches = {name: getattr(coll, name).launches for name in KERNELS}
-        plain = search.plan_trajectory(*args, **kwargs)
+        plain = plan(*args, **kwargs)
         if launches != {name: getattr(coll, name).launches
                         for name in KERNELS}:
             raise AssertionError(f"{label}: a kernel ran in the plain plan")
@@ -731,7 +873,7 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label,
     print(f"plan level {label}: chunk of {args[1].shape[0]} vehicles, "
           f"{int(args[5].mask.sum())} active obstacle slots: trims, costs "
           f"and poses equal with kernels and plain versions", flush=True)
-    return lattice_calls
+    return form_calls
 
 
 def lattice_bytes(lat, live, bundle_bytes):
@@ -771,35 +913,52 @@ PATH_BOUNDS = {
 }
 
 
-def path_shapes(torch, coll, lattice_calls, rows, names, label,
+def cxcy_bound(name, cx, cy, pre, live, feasible):
+    """The bound of a (cx, cy)-form call of kernel ``name`` on candidates
+    cx, cy [V, VA, C] with live mask ``live`` [V, C]."""
+    cand_bytes = 4 * cx.numel() * 2
+    if name == "sat_hits":
+        return sat_bound(live, feasible, distinct_vertices(
+            cx.transpose(1, 2), cy.transpose(1, 2)), pre,
+            cand_bytes + sat_bundle_bytes(pre))
+    return crossing_bound(live, feasible, PATH_BOUNDS[name][0](pre),
+                          cx.shape[1], cand_bytes + sum(
+                              t.numel() * t.element_size() for t in pre))
+
+
+def path_shapes(torch, coll, form_calls, rows, names, label,
                 row_key="path"):
-    """Phase 8: every lattice-form call of the kernels ``names`` in a
-    recorded plan, held bit for bit against its plain version on the same
-    inputs and timed beside it, bound over the live candidates (for the
-    boundary kernel: those the obstacle test left live). Adds each
-    kernel's per-layer and per-plan numbers to its row under ``row_key``."""
-    if not {c[0] for c in lattice_calls} >= set(names):
-        raise AssertionError(f"the {label} made no lattice-form call of "
-                             f"each of {names}")
+    """Phase 8: every recorded call of the kernels ``names`` in a plan (a
+    lattice-form call of the beam search, a (cx, cy)-form call of the
+    sampled search), held bit for bit against its plain version on the
+    same inputs and timed beside it, bound over the live candidates (for
+    the boundary kernel: those the obstacle test left live). Adds each
+    kernel's per-layer and per-plan numbers to its row under
+    ``row_key``."""
+    if not {c[0] for c in form_calls} >= set(names):
+        raise AssertionError(f"the {label} made no call of each of {names}")
     for name in names:
-        fn = getattr(coll, name + "_lattice")
-        plain = getattr(coll, name + "_lattice_plain")
         active_of, bound_of = PATH_BOUNDS[name]
         layers = []
-        for _, layer, lat, live, pre in (c for c in lattice_calls
-                                         if c[0] == name):
-            want = plain(lat, live, pre)
-            compare(torch, f"{name} lattice layer {layer}",
-                    fn(lat, live, pre), want)
-            n_active = active_of(pre)
-            bound_ms, bound_by = bound_of(lat, live, want, pre, n_active)
+        for _, layer, form, args in (c for c in form_calls if c[0] == name):
+            fn = getattr(coll, form)
+            plain = getattr(coll, form + "_plain")
+            want = plain(*args)
+            compare(torch, f"{form} layer {layer}", fn(*args), want)
+            n_active = active_of(args[2])          # the bundle, both forms
+            if form in LATTICE:
+                lat, live, pre = args
+                bound_ms, bound_by = bound_of(lat, live, want, pre, n_active)
+            else:
+                cx, cy, pre, live = args
+                bound_ms, bound_by = cxcy_bound(name, cx, cy, pre, live,
+                                                want)
             layers.append({
                 "layer": layer, "candidates": live.numel(),
                 "live": int(live.sum()), "feasible": int(want.sum()),
                 "active": n_active.tolist(),
-                "ms": device_ms(torch, lambda: fn(lat, live, pre)),
-                "plain_ms": device_ms(torch, lambda: plain(lat, live, pre),
-                                      reps=10),
+                "ms": device_ms(torch, lambda: fn(*args)),
+                "plain_ms": device_ms(torch, lambda: plain(*args), reps=10),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
         path = {"plan": label, "layers": layers}
@@ -864,6 +1023,88 @@ def strategy_goldens(Config):
                                 beam_width=64)
 
 
+def noise_cost(torch):
+    """What one step's Gumbel noise costs on the card at cr20's sampled
+    shape (20 vehicles, Hp 6, 256 rollouts, 12 trims: one threefry pass in
+    int64 tensor ops, drawn once a step): kernel launches (profiler), the
+    host ms of the call and its device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdmpc_torch.ops.search import rollout_noise
+
+    def draw():
+        return rollout_noise(0, 3, 20, 6, 256, 12, "cuda")
+
+    draw()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        draw()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if e.key in {
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"})
+    t0 = time.perf_counter()
+    draw()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    got = {"launches": launches, "host_ms": host_ms,
+           "device_ms": device_ms(torch, draw, reps=10)}
+    print(f"threefry noise of a cr20 sampled step: {got}", flush=True)
+    return got
+
+
+def matrix_goldens(Config):
+    """(golden name, configuration, exact) of phase 15: the cells of
+    tests/test_matrix.py with random strategies or the sampled optimizer,
+    at its scale. The four that draw only integers and uniforms (random
+    priorities and weights) must match exactly; the six sampled ones draw
+    Gumbel noise through the card's ``log``, an ulp from XLA's in some
+    values, so they are held to the gate and whether they match exactly
+    is printed."""
+    from pdmpc_torch import (
+        CouplingStrategies as Co,
+        MpaType as M,
+        OptimizerType as O,
+        PriorityStrategies as P,
+        ScenarioType as S,
+        WeightStrategies as W,
+    )
+
+    cells = {
+        "mx02": (S.circle, M.single_speed, O.TpuSampled, Co.full_coupling,
+                 P.constant_priority, W.random_weight),
+        "mx03": (S.commonroad, M.triple_speed, O.TpuOptimal,
+                 Co.distance_coupling, P.random_priority,
+                 W.distance_weight),
+        "mx04": (S.circle, M.triple_speed, O.TpuSampled, Co.no_coupling,
+                 P.coloring_priority, W.constant_weight),
+        "mx05": (S.commonroad, M.realistic, O.TpuSampled,
+                 Co.reachable_set_coupling, P.FCA_priority,
+                 W.random_weight),
+        "mx09": (S.commonroad, M.triple_speed, O.TpuSampled,
+                 Co.full_coupling, P.explorative_priority,
+                 W.constant_weight),
+        "mx10": (S.circle, M.triple_speed, O.TpuOptimal,
+                 Co.reachable_set_coupling, P.optimal_priority,
+                 W.random_weight),
+        "mx11": (S.commonroad, M.realistic, O.TpuOptimal, Co.full_coupling,
+                 P.random_priority, W.constant_weight),
+        "mx12": (S.circle, M.realistic, O.TpuSampled, Co.distance_coupling,
+                 P.constant_priority, W.distance_weight),
+        "mx13": (S.mixed, M.single_speed, O.TpuOptimal,
+                 Co.reachable_set_coupling, P.random_priority,
+                 W.distance_weight),
+        "mx14": (S.mixed, M.triple_speed, O.TpuSampled, Co.full_coupling,
+                 P.coloring_priority, W.constant_weight),
+    }
+    for name, (sc, mpa, opt, co, pr, w) in cells.items():
+        yield name, Config(scenario_type=sc, amount=3, T_end=1.0,
+                           beam_width=64, mpa_type=mpa, optimizer_type=opt,
+                           coupling=co, priority=pr, weight=w,
+                           mcts_n_rollouts=128), opt.is_optimal
+
+
 def voting(coll, run_experiment, Config, card, dims, record):
     """Phase 12: cr20 at beam 512 for 10 steps with constant, optimal and
     explorative priorities; each collision-free and on the road, its step
@@ -911,7 +1152,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from pdmpc_torch import Config, PriorityStrategies, ScenarioType
+    from pdmpc_torch import (
+        Config,
+        OptimizerType,
+        PriorityStrategies,
+        ScenarioType,
+        WeightStrategies,
+    )
     from pdmpc_torch.experiment import run_experiment
     from pdmpc_torch.models.bicycle import VEHICLE_LENGTH, VEHICLE_WIDTH
     from pdmpc_torch.ops import collision as coll
@@ -937,9 +1184,12 @@ def main() -> int:
     by_path = {name: {} for name in KERNELS}
 
     def record(label, launches, res):
+        """The run's launches of each kernel, in all and a step, and of
+        its lattice form (still on the counters ``counted_run`` read)."""
         for name, count in launches.items():
-            by_path[name][label] = {"launches": count,
-                                    "per_step": count / res.n_steps}
+            by_path[name][label] = {
+                "launches": count, "per_step": count / res.n_steps,
+                "lattice_launches": getattr(coll, name + "_lattice").launches}
 
     # ---- 3. road path -----------------------------------------------------
     road_kernels = ("outline_hits", "boundary_hits")
@@ -1010,6 +1260,67 @@ def main() -> int:
         record(name, launches, res)
     # ---- 12. voting: optimal and explorative against constant -----------
     voting(coll, run_experiment, Config, card, dims, record)
+    # ---- 13. stage rounds: bundles past one 48 KB stage ------------------
+    oversize = oversize_bundles(torch, coll, "cuda")
+    for name in KERNELS:
+        rows[name]["oversize"] = oversize[name]
+    # 3 families x 40 vehicles: 120 SAT obstacles, 128 once padded
+    launches, res = drive(
+        coll, run_experiment,
+        Config(scenario_type=circle, amount=40, T_end=2.0, beam_width=128),
+        card, "circle40", ("sat_hits",), dims, min_moved=None,
+        max_fallback_share=None)
+    record("circle40", launches, res)
+    circle40_calls = plans_with_plain_versions(
+        torch, coll, run_experiment,
+        Config(scenario_type=circle, amount=40, T_end=0.4, beam_width=128),
+        "circle40 chunk")
+    path_shapes(torch, coll, circle40_calls, rows, ("sat_hits",),
+                "circle40 chunk", row_key="path_circle40")
+    # ---- 14. the random strategies and the sampled search at full width --
+    sampled = OptimizerType.TpuSampled
+    for label, cfg, launched, lattice in (
+            ("cr20 random", Config(
+                amount=20, T_end=4.0,
+                priority=PriorityStrategies.random_priority,
+                weight=WeightStrategies.random_weight), road_kernels, True),
+            ("cr20 sampled", Config(amount=20, T_end=4.0,
+                                    optimizer_type=sampled),
+             road_kernels, False),
+            ("circle sampled", Config(scenario_type=circle, amount=10,
+                                      T_end=8.0, optimizer_type=sampled),
+             ("sat_hits",), False)):
+        # on the road: on some lanelet of the map. With other priorities
+        # than the reference's goldens a vehicle can leave its route at a
+        # fork through the open end of its lanelet (PERF.md, Findings, PR
+        # 6); those steps are printed
+        launches, res = drive(coll, run_experiment, cfg, card, label,
+                              launched, dims, max_fallback_share=None,
+                              n_road=cfg.amount if launched == road_kernels
+                              else 0, lattice=lattice, route=False)
+        record(label, launches, res)
+    rows["sat_hits"]["rollout_noise"] = noise_cost(torch)
+    # one sampled chunk of each path, with kernels and with plain versions,
+    # and every layer's (cx, cy)-form call held bit for bit and timed
+    for cfg, names, label in (
+            (Config(amount=20, T_end=1.0, optimizer_type=sampled),
+             road_kernels, "cr20 sampled chunk"),
+            (Config(scenario_type=circle, amount=10, T_end=3.0,
+                    optimizer_type=sampled), ("sat_hits",),
+             "circle sampled chunk")):
+        calls = plans_with_plain_versions(
+            torch, coll, run_experiment, cfg, label,
+            planner="plan_trajectory_sampled", forms=CXCY)
+        path_shapes(torch, coll, calls, rows, names, label,
+                    row_key="path_sampled")
+    # ---- 15. the random and sampled matrix goldens -----------------------
+    for name, cfg, exact in matrix_goldens(Config):
+        launched = (("sat_hits",) if cfg.scenario_type == circle
+                    else road_kernels)
+        launches, res = golden_gate(run_experiment, cfg, name, coll,
+                                    launched, exact_required=exact,
+                                    lattice=exact)
+        record(name, launches, res)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]

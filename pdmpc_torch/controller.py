@@ -7,18 +7,21 @@ One control period:
 measure -> traffic info (reference trajectory, occupied areas, reachable
 sets; on a road also predicted lanelets and boundary segments, and the
 reachable sets bounded to the lane corridor) -> couple (none, full,
-distance or reachable-set overlap) -> prioritize (constant, coloring or
-FCA) -> solve: weigh (constant or distance) -> greedy cut -> Kahn levels
--> dataflow chunk schedule -> plan each chunk of vehicles as one batched
-beam search against the obstacle families (outline crossing or SAT, as
-``Config.use_non_convex_obstacles`` says) -> exhaustion and fallback
-handling -> apply. The optimal and explorative priority modes solve
-several directed couplings a step and vote per coupling subgraph. Road
-(commonroad), free-space (circle) and mixed scenarios run, with static
-obstacles where the scenario has them.
+distance or reachable-set overlap) -> prioritize (constant, random,
+coloring or FCA) -> solve: weigh (constant, random or distance) -> greedy
+cut -> Kahn levels -> dataflow chunk schedule -> plan each chunk of
+vehicles as one batched search (the beam search, or the sampled rollouts
+of ``Config.optimizer_type`` TpuSampled) against the obstacle families
+(outline crossing or SAT, as ``Config.use_non_convex_obstacles`` says) ->
+exhaustion and fallback handling -> apply. The optimal and explorative
+priority modes solve several directed couplings a step and vote per
+coupling subgraph. Road (commonroad), free-space (circle) and mixed
+scenarios run, with static obstacles where the scenario has them. The
+random strategies and the rollout policy draw with ``pdmpc_torch.prng``,
+bit-equal to the reference's ``jax.random``.
 
-Random priorities and weights, HDVs, sampled and centralized search and
-the dense level loop are not ported yet and raise NotImplementedError.
+HDVs, centralized search and the dense level loop are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ from pdmpc_torch.ops.search import (
     _sat_separates_batch,
     pad_polys_to_vo,
     plan_trajectory,
+    plan_trajectory_sampled,
+    rollout_noise,
 )
 from pdmpc_torch.parallel import graph as graph_ops
 from pdmpc_torch.parallel.comm import LocalComm
@@ -115,16 +120,12 @@ def initial_state(scenario: ScenarioTensors, hp: int) -> StepState:
 
 def check_main_path(cfg: Config) -> None:
     """Raise NotImplementedError for anything the port does not run yet:
-    random priorities or weights, the sampled optimizer, human-driven
-    vehicles, centralized planning and the parallel computation mode."""
+    human-driven vehicles, centralized planning and the parallel
+    computation mode."""
     refused = [
         (not cfg.is_prioritized, "centralized planning"),
         (cfg.computation_mode != ComputationMode.sequential,
          f"computation_mode={cfg.computation_mode.value}"),
-        (cfg.priority == PriorityStrategies.random_priority,
-         "random_priority"),
-        (cfg.weight == WeightStrategies.random_weight, "random_weight"),
-        (not cfg.optimizer_type.is_optimal, "the sampled optimizer"),
         (cfg.manual_control_config.is_active, "human-driven vehicles"),
     ]
     missing = [what for no, what in refused if no]
@@ -271,12 +272,15 @@ def _fca_priorities(cfg: Config, adjacency, ref_points):
     return graph_ops.ranks_of(order)
 
 
-def _prioritize(cfg: Config, adjacency, ref_points):
-    """Priorities and the directed coupling they induce (Prioritizer.m);
-    optimal and explorative modes start from constant priorities
-    (Prioritizer.m:26-29)."""
+def _prioritize(cfg: Config, adjacency, ref_points, k: int):
+    """Priorities and the directed coupling they induce (Prioritizer.m) at
+    step ``k``; optimal and explorative modes start from constant
+    priorities (Prioritizer.m:26-29)."""
     n = adjacency.shape[0]
-    if cfg.priority == PriorityStrategies.FCA_priority:
+    if cfg.priority == PriorityStrategies.random_priority:
+        priorities = graph_ops.random_priorities(n, k, cfg.seed,
+                                                 adjacency.device)
+    elif cfg.priority == PriorityStrategies.FCA_priority:
         priorities = _fca_priorities(cfg, adjacency, ref_points)
     elif cfg.priority == PriorityStrategies.coloring_priority:
         priorities = graph_ops.coloring_priorities(adjacency)
@@ -291,11 +295,14 @@ def _prioritize(cfg: Config, adjacency, ref_points):
     return priorities, directed
 
 
-def _weigh(cfg: Config, directed, poses, max_mpa_speed):
-    """Constant (ConstantWeigher.m) or distance (DistanceWeigher.m)
-    weights of the directed coupling."""
+def _weigh(cfg: Config, directed, poses, k: int, max_mpa_speed):
+    """Constant (ConstantWeigher.m), random (RandomWeigher.m, seeded by
+    step ``k``) or distance (DistanceWeigher.m) weights of the directed
+    coupling."""
     if cfg.weight == WeightStrategies.constant_weight:
         return graph_ops.constant_weights(directed)
+    if cfg.weight == WeightStrategies.random_weight:
+        return graph_ops.random_weights(directed, k, cfg.seed)
     if cfg.weight == WeightStrategies.distance_weight:
         return graph_ops.distance_weights(directed, poses[:, :2],
                                           max_mpa_speed, cfg.dt_seconds,
@@ -367,36 +374,68 @@ def _solve_optimal(cfg: Config, comm, solve, adjacency):
                               invalid_pc)
 
 
+# The vote's summation order, mapped against XLA:CPU by shape (candidate
+# rows P, vehicles N; tests/test_torch_strategies.py sweeps them): the
+# vehicle counts N that sum in four or in two lanes at P >= 64 (P = 128
+# and 256 add N = 5 to the four). Optimal voting's P is a power of two,
+# explorative's at most N.
+_LANES4_P64 = frozenset([4, *range(6, 17), 19, 20, 23, 24, *range(33, 49)])
+_LANES2_P64 = frozenset([17, 18, 21, 22, *range(25, 33)])
+
+
+def vote_order_mapped(p_cnt: int, n: int) -> bool:
+    """Whether the summation order of a vote over ``p_cnt`` candidates of
+    ``n`` vehicles was mapped: N up to 64, P up to 64 and P in {128,
+    256}."""
+    return n <= 64 and (p_cnt <= 64 or p_cnt in (128, 256))
+
+
+def _vote_lanes(p_cnt: int, n: int) -> int:
+    """Lanes in which XLA:CPU sums the vote's one-hot contraction at this
+    shape: 4, 2 or 1 (one vehicle after another)."""
+    if p_cnt >= 64:
+        if n in _LANES4_P64 or (p_cnt >= 128 and n == 5):
+            return 4
+        return 2 if n in _LANES2_P64 else 1
+    if p_cnt >= 2 and (n in (8, 11, 12, 14, 15, 16)
+                       or (p_cnt >= 8 and n in (4, 6, 7))):
+        return 4
+    return 1
+
+
 def _subgraph_totals(cost_g, belonging):
     """Vote totals [P, N-labels]: each candidate row's costs ``cost_g``
     [N, P] summed over the members of each subgraph label, rounded to 8
     decimals (PrioritizedOptimalController.m:104).
 
     The reference contracts with a one-hot matmul on XLA:CPU, and which
-    order that sums the vehicles in depends on the shape: P >= 2 and
-    N in {8, 11, 12, 14, 15, 16} (and N in {4, 6, 7} once P >= 8) take
-    four lanes (lane j sums vehicles j, j + 4, ... of the first 4*(N//4),
-    the lanes are added (l0 + l1) + (l2 + l3), then the rest in order);
-    every other shape sums the vehicles one after another. Both orders are
-    spelled out here so the totals equal the reference's bit for bit
-    (tests/test_torch_strategies.py holds them); non-members add exact
-    zeros in place. The rounding is ``jnp.round``'s as XLA compiles it:
-    round half to even of x * 1e8, times the f32 constant 1e-8 (XLA turns
-    the division by 1e8 into that product).
+    order that sums the vehicles in depends on the shape
+    (``_vote_lanes``): below P = 64, P >= 2 and N in {8, 11, 12, 14, 15,
+    16} (and N in {4, 6, 7} once P >= 8) take four lanes; at P >= 64 most
+    N up to 48 take four lanes or two. With k lanes, lane j sums vehicles
+    j, j + k, ... of the first k*(N//k), the lanes are added pairwise
+    ((l0 + l1) + (l2 + l3)), and then the rest, summed in order, is
+    added; every other shape sums the vehicles one after another. The
+    orders are spelled out here so the totals equal the reference's bit
+    for bit (tests/test_torch_strategies.py holds them); non-members add
+    exact zeros in place. The rounding is ``jnp.round``'s as XLA compiles
+    it: round half to even of x * 1e8, times the f32 constant 1e-8 (XLA
+    turns the division by 1e8 into that product).
     """
     n, p_cnt = cost_g.shape
     onehot = (belonging[:, None] == torch.arange(n, device=cost_g.device)
               ).to(cost_g.dtype)                             # [N, labels]
     terms = cost_g.T[:, :, None] * onehot[None]              # [P, N, labels]
-    lanes = p_cnt >= 2 and (n in (8, 11, 12, 14, 15, 16)
-                            or (p_cnt >= 8 and n in (4, 6, 7)))
-    full = 4 * (n // 4) if lanes else 0
+    k = _vote_lanes(p_cnt, n)
+    full = k * (n // k) if k > 1 else 0
     total = None
     if full:
-        lane = [terms[:, j] for j in range(4)]
-        for i in range(4, full):
-            lane[i % 4] = lane[i % 4] + terms[:, i]
-        total = (lane[0] + lane[1]) + (lane[2] + lane[3])
+        lane = [terms[:, j] for j in range(k)]
+        for i in range(k, full):
+            lane[i % k] = lane[i % k] + terms[:, i]
+        while len(lane) > 1:
+            lane = [lane[j] + lane[j + 1] for j in range(0, len(lane), 2)]
+        total = lane[0]
     rest = None
     for i in range(full, n):
         rest = terms[:, i] if rest is None else rest + terms[:, i]
@@ -421,6 +460,12 @@ def _vote_per_subgraph(comm, solve, directed_stack, belonging, invalid_pc,
     Returns (planned, planned_shapes, sequential, levels, priorities,
     directed, chosen row [N])."""
     p_cnt, n = directed_stack.shape[:2]
+    if not vote_order_mapped(p_cnt, n):
+        warnings.warn(
+            f"vote totals over P={p_cnt} candidates of N={n} vehicles: "
+            f"XLA:CPU's summation order is mapped for N <= 64 and P <= 64 "
+            f"or P in (128, 256) only, so a total may part an ulp from the "
+            f"reference's", stacklevel=3)
     rows = torch.arange(n, device=directed_stack.device)
     if solve_rows is None:
         solve_rows = range(p_cnt)
@@ -551,6 +596,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     # obstacle-geometry dispatch (OptimizerInterface.m:36-46): outline
     # crossing for road scenarios, SAT for the circle (or as overridden)
     non_convex = cfg.use_non_convex_obstacles
+    sampled = not cfg.optimizer_type.is_optimal
     use_reachability = cfg.isDealPredictionInconsistency
     successor_mode = cfg.constraint_from_successor
     # static scenario obstacles join every vehicle's obstacle set at every
@@ -603,6 +649,11 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             adjacency_lanelets=(road.adjacency_lanelets
                                 if road is not None else None),
         )
+        if sampled:
+            # the rollouts' Gumbel noise depends on (seed, step, vehicle)
+            # only: one draw a step serves every solve of the step
+            noise = rollout_noise(cfg.seed, k, n, hp, cfg.mcts_n_rollouts,
+                                  mpa.n_trims, dev)
         if cfg.priority == PriorityStrategies.explorative_priority:
             # explorative mode keeps the previous step's winning
             # prioritization (PrioritizedExplorativeController.m:146-176)
@@ -610,7 +661,8 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             directed = graph_ops.directed_coupling_from_priorities(
                 adjacency, priorities)
         else:
-            priorities, directed = _prioritize(cfg, adjacency, ref_points_g)
+            priorities, directed = _prioritize(cfg, adjacency, ref_points_g,
+                                               k)
 
         # ---- obstacle families (global, shared across vehicles) ----------
         # 0: this step's already-planned predicted areas; 1: parallel-
@@ -631,7 +683,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             cut -> levels -> obstacle families -> compact chunk loop.
             Returns (planned, planned_shapes [N, Hp, VO, 2], sequential,
             levels); ``planned.shapes`` are the same padded areas."""
-            weighted = _weigh(cfg, directed_p, pose_g, max_mpa_speed)
+            weighted = _weigh(cfg, directed_p, pose_g, k, max_mpa_speed)
             sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
             levels, _ = graph_ops.kahn_levels(sequential)
             seq_pred = sequential.T & not_self
@@ -677,13 +729,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                     polys=obs_polys.expand(nv, *obs_polys.shape),
                     mask=obs_mask[idx][:, :, None].expand(nv, n_obs, hp),
                 )
-                result = plan_trajectory(
-                    mpa, state.pose[idx], state.trim[idx], ref_points[idx],
-                    v_ref[idx], obstacles, dt, cfg.beam_width,
-                    segments_pre=(None if seg_pre is None else
-                                  SegmentsPre(*(x[idx] for x in seg_pre))),
-                    non_convex=non_convex,
-                )
+                args = (mpa, state.pose[idx], state.trim[idx], ref_points[idx],
+                        v_ref[idx], obstacles, dt)
+                kw = dict(segments_pre=(None if seg_pre is None else
+                                        SegmentsPre(*(x[idx]
+                                                      for x in seg_pre))),
+                          non_convex=non_convex)
+                if sampled:
+                    result = plan_trajectory_sampled(
+                        *args, noise[idx], temperature=cfg.mcts_temperature,
+                        **kw)
+                else:
+                    result = plan_trajectory(*args, cfg.beam_width, **kw)
                 result = result._replace(
                     shapes=pad_polys_to_vo(result.shapes))
                 for field, value in zip(planned, result):
@@ -695,7 +752,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
              directed, perm_chosen) = _solve_optimal(cfg, comm, solve,
                                                      adjacency)
         elif cfg.priority == PriorityStrategies.explorative_priority:
-            weighted0 = _weigh(cfg, directed, pose_g, max_mpa_speed)
+            weighted0 = _weigh(cfg, directed, pose_g, k, max_mpa_speed)
             sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
             levels0, _ = graph_ops.kahn_levels(sequential0)
             (planned, planned_shapes, sequential, levels, priorities,

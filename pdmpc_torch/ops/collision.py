@@ -37,7 +37,9 @@ needs a single axis, so a typical mask needs less than the time to read
 its inputs once); in practice latency, since a candidate meets its active
 obstacles one after another. The design of all three (csrc/collision.cu
 says more): a grid of resident blocks, each compacting its vehicle's
-active segments or obstacles into shared memory once; a group of lanes a
+active segments or obstacles into shared memory, as many a round as the
+scan's stage budget holds (``stage_plan``; a bundle past it is staged in
+rounds, each OR-ing its hits in, which changes no mask); a group of lanes a
 candidate (a warp for crossing, 8 lanes for SAT), each lane a strided
 share of the segments or obstacles, the group leaving at its first hit;
 candidates that are not live are not scanned. Skipping masked obstacles,
@@ -107,11 +109,26 @@ SAT_CHUNK = 8
 MAX_VA = 8
 # Most vertices of an obstacle the SAT kernel stages (a half warp each).
 MAX_VO = 16
-# Shared-memory budget of one block's stage: 48 KB of segments (4 floats
-# each) or of obstacles (6 floats a vertex: vertex, axis, extents; 3 ints
-# an obstacle).
-_SMEM_BYTES = 48 * 1024
-_MAX_STAGED_EDGES = _SMEM_BYTES // 16
+# Shared-memory budget of one stage round of a kernel block (the segments
+# or obstacles staged at a time; more are staged in rounds, see
+# ``stage_plan``). A stage past 47 KB opts the kernel into more shared
+# memory (csrc/collision.cu allow_smem); an H100 block may take 227 KB,
+# some of it static. Chosen on the card (PERF.md, Findings, PR 6): on
+# bundles of 5 to 16 times a 48 KB stage all three scans ran fastest in
+# 48 KB rounds (96 KB up to 24% slower, 200 KB up to 55%: fewer resident
+# blocks); at 1.3 stages one 64 KB stage was 2% to 4% faster. 48 KB holds
+# 3,072 segments (mixed-64's whole outline stage, in one round as
+# before) or 124 SAT obstacles of 16 vertices.
+STAGE_BYTES = 48 * 1024
+MAX_STAGE_BYTES = 226 * 1024
+# Bytes a staged entry takes: a segment (b1x, b1y, sx, sy), or a SAT
+# obstacle of VO vertices (vertex, axis and extents: 6 floats a vertex;
+# vertex count, axis count and index: 3 ints).
+SEG_STAGE_BYTES = 16
+
+
+def sat_stage_bytes(vo: int) -> int:
+    return 6 * vo * 4 + 3 * 4
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
                     "collision.cu")
@@ -154,14 +171,14 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lattice = ([ptr, i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, ptr,
                     i64, i64])
-        lib.outline_hits.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.outline_hits.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         lib.outline_hits_lattice.argtypes = (lattice + [ptr] * 5
-                                             + [i32] * 4 + [ptr])
-        lib.boundary_hits.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+                                             + [i32] * 5 + [ptr])
+        lib.boundary_hits.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.boundary_hits_lattice.argtypes = (lattice + [ptr] * 4
-                                              + [i32] * 3 + [ptr])
-        lib.sat_hits.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
-        lib.sat_hits_lattice.argtypes = (lattice + [ptr] * 9 + [i32] * 4
+                                              + [i32] * 4 + [ptr])
+        lib.sat_hits.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        lib.sat_hits_lattice.argtypes = (lattice + [ptr] * 9 + [i32] * 5
                                          + [ptr])
         for fn in (lib.outline_hits, lib.outline_hits_lattice,
                    lib.boundary_hits, lib.boundary_hits_lattice,
@@ -452,6 +469,32 @@ def sat_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+class StagePlan(NamedTuple):
+    """How a kernel block stages a bundle: ``cap`` entries (segments or
+    obstacles) a round in ``bytes`` of shared memory, in at most
+    ``rounds`` rounds (that many when every entry is active; a round
+    stages only active ones, so fewer are needed otherwise)."""
+
+    cap: int
+    bytes: int
+    rounds: int
+
+
+def stage_plan(entries: int, entry_bytes: int,
+               budget: int | None = None) -> StagePlan:
+    """The stage plan of a bundle of ``entries`` entries of
+    ``entry_bytes`` each under a shared-memory ``budget`` in bytes
+    (default ``STAGE_BYTES``): as many entries a round as the budget
+    holds, at least one. Host arithmetic only, the same for every call of
+    a shape."""
+    budget = STAGE_BYTES if budget is None else budget
+    if not entry_bytes <= budget <= MAX_STAGE_BYTES:
+        raise ValueError(f"stage budget {budget} bytes outside "
+                         f"[{entry_bytes}, {MAX_STAGE_BYTES}]")
+    cap = max(1, min(entries, budget // entry_bytes))
+    return StagePlan(cap, cap * entry_bytes, -(-entries // cap))
+
+
 def _check_candidates(cx, cy):
     if cx.dim() != 3 or cx.shape != cy.shape:
         raise ValueError(f"candidates must be [V, VA, C]; got {cx.shape}, "
@@ -531,11 +574,16 @@ def _lattice_args(lat: Lattice, n: int, va: int):
             *c.stride()[:2])
 
 
-def _launched(err, kernel):
+def _launched(err, kernel, form=None):
+    """Count a launch of ``kernel`` (its wrapper's ``launches``: every
+    form) and, for a lattice-form call, of ``form`` too; raise on a failed
+    launch."""
     if err != 0:
         raise RuntimeError(f"{kernel.__name__} kernel launch failed: CUDA "
                            f"error {err}")
     kernel.launches += 1
+    if form is not None:
+        form.launches += 1
 
 
 def _candidates(cx, cy, live):
@@ -553,43 +601,37 @@ def _candidates(cx, cy, live):
 
 def _outline_ptrs(pre: OutlinePre, v, dev):
     """Checks of an obstacle bundle for the kernel; returns its pointers
-    and (NO, VO)."""
+    and (NO, VO, segments a stage round)."""
     no, vo = pre.ox.shape[1:]
-    if no * vo > _MAX_STAGED_EDGES:
-        raise ValueError(f"{no * vo} obstacle edges exceed the shared-"
-                         f"memory stage of {_MAX_STAGED_EDGES}")
     _check(dev, (("ox", pre.ox, (v, no, vo), torch.float32, True),
                  ("oy", pre.oy, (v, no, vo), torch.float32, True),
                  ("edge_ok", pre.edge_ok, (v, no, vo), torch.int32, True)))
-    return (pre.ox.data_ptr(), pre.oy.data_ptr(), pre.edge_ok.data_ptr()), \
-        no, vo
+    return ((pre.ox.data_ptr(), pre.oy.data_ptr(), pre.edge_ok.data_ptr()),
+            no, vo, stage_plan(no * vo, SEG_STAGE_BYTES).cap)
 
 
 def _segment_ptrs(pre: SegmentsPre, v, dev):
-    """Checks of a segment bundle for the kernel; returns its pointers and
-    S_pad."""
+    """Checks of a segment bundle for the kernel; returns its pointers,
+    S_pad and the segments a stage round."""
     s_pad = pre.packed.shape[-1]
-    if s_pad > _MAX_STAGED_EDGES:
-        raise ValueError(f"{s_pad} segments exceed the shared-memory stage "
-                         f"of {_MAX_STAGED_EDGES}")
     _check(dev, (("packed", pre.packed, (v, 8, s_pad), torch.float32, True),
                  ("mask", pre.mask, (v, s_pad), torch.int32, True)))
-    return (pre.packed.data_ptr(), pre.mask.data_ptr()), s_pad
+    return ((pre.packed.data_ptr(), pre.mask.data_ptr()), s_pad,
+            stage_plan(s_pad, SEG_STAGE_BYTES).cap)
 
 
 def _obstacle_ptrs(pre: ObstaclesPre, v, dev):
     """Checks of a SAT obstacle bundle for the kernel; returns its
-    pointers (the bundle's field order) and (NO, VO)."""
+    pointers (the bundle's field order), NO, VO and the obstacles a stage
+    round."""
     no, vo = pre.ox.shape[1:]
     if vo > MAX_VO:
         raise ValueError(f"at most {MAX_VO} obstacle vertices, got {vo}")
-    if no * (6 * vo + 3) * 4 > _SMEM_BYTES:
-        raise ValueError(f"{no} obstacles of {vo} vertices exceed the "
-                         f"shared-memory stage of {_SMEM_BYTES} bytes")
     _check(dev, tuple((name, getattr(pre, name), (v, no, vo), torch.float32,
                        True) for name in ObstaclesPre._fields[:6])
            + (("mask", pre.mask, (v, no), torch.int32, True),))
-    return tuple(t.data_ptr() for t in pre), no, vo
+    return (tuple(t.data_ptr() for t in pre), no, vo,
+            stage_plan(no, sat_stage_bytes(vo)).cap)
 
 
 def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
@@ -601,14 +643,14 @@ def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return outline_hits_plain(cx, cy, pre, live)
-    ptrs, no, vo = _outline_ptrs(pre, v, dev)
+    ptrs, no, vo, cap = _outline_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().outline_hits(
         cx.data_ptr(), cy.data_ptr(), *ptrs,
         None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        no, vo, _stream(dev)), outline_hits)
+        no, vo, cap, _stream(dev)), outline_hits)
     return out
 
 
@@ -620,19 +662,24 @@ def outline_hits_lattice(lat: Lattice, live: torch.Tensor,
     """[V, B, n] bool feasibility ``live & ~hit`` of one search layer's
     candidates (built in the kernel from ``lat``) against the obstacle
     bundle ``pre``; ``live`` [V, B, n] bool or uint8. One launch of the
-    outline kernel (counted on ``outline_hits.launches``)."""
+    outline kernel (counted on ``outline_hits.launches`` and on this
+    form's own ``launches``)."""
     dev = _device_of(live)
     v, b, n, va = _check_lattice(lat, live, dev)
     if dev < 0:
         return outline_hits_lattice_plain(lat, live, pre)
-    ptrs, no, vo = _outline_ptrs(pre, v, dev)
+    ptrs, no, vo, cap = _outline_ptrs(pre, v, dev)
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().outline_hits_lattice(
         *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, no, vo, _stream(dev)), outline_hits)
+        v, b, no, vo, cap, _stream(dev)), outline_hits,
+        outline_hits_lattice)
     return out
+
+
+outline_hits_lattice.launches = 0
 
 
 def boundary_hits(cx: torch.Tensor, cy: torch.Tensor, pre: SegmentsPre,
@@ -643,14 +690,14 @@ def boundary_hits(cx: torch.Tensor, cy: torch.Tensor, pre: SegmentsPre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return boundary_hits_plain(cx, cy, pre, live)
-    ptrs, s_pad = _segment_ptrs(pre, v, dev)
+    ptrs, s_pad, cap = _segment_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().boundary_hits(
         cx.data_ptr(), cy.data_ptr(), *ptrs,
         None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        s_pad, _stream(dev)), boundary_hits)
+        s_pad, cap, _stream(dev)), boundary_hits)
     return out
 
 
@@ -663,19 +710,23 @@ def boundary_hits_lattice(lat: Lattice, live: torch.Tensor,
     candidates (built in the kernel from ``lat``) against the boundary
     segments ``pre``; ``live`` [V, B, n] bool or uint8 (in the search: the
     outline kernel's result). One launch of the boundary kernel (counted
-    on ``boundary_hits.launches``)."""
+    on ``boundary_hits.launches`` and on this form's own ``launches``)."""
     dev = _device_of(live)
     v, b, n, va = _check_lattice(lat, live, dev)
     if dev < 0:
         return boundary_hits_lattice_plain(lat, live, pre)
-    ptrs, s_pad = _segment_ptrs(pre, v, dev)
+    ptrs, s_pad, cap = _segment_ptrs(pre, v, dev)
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().boundary_hits_lattice(
         *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, s_pad, _stream(dev)), boundary_hits)
+        v, b, s_pad, cap, _stream(dev)), boundary_hits,
+        boundary_hits_lattice)
     return out
+
+
+boundary_hits_lattice.launches = 0
 
 
 def sat_hits(cx: torch.Tensor, cy: torch.Tensor, pre: ObstaclesPre,
@@ -687,14 +738,14 @@ def sat_hits(cx: torch.Tensor, cy: torch.Tensor, pre: ObstaclesPre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return sat_hits_plain(cx, cy, pre, live)
-    ptrs, no, vo = _obstacle_ptrs(pre, v, dev)
+    ptrs, no, vo, cap = _obstacle_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().sat_hits(
         cx.data_ptr(), cy.data_ptr(), *ptrs,
         None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        no, vo, _stream(dev)), sat_hits)
+        no, vo, cap, _stream(dev)), sat_hits)
     return out
 
 
@@ -706,16 +757,20 @@ def sat_hits_lattice(lat: Lattice, live: torch.Tensor,
     """[V, B, n] bool feasibility ``live & ~hit`` of one search layer's
     convex candidates (built in the kernel from ``lat``) against the SAT
     obstacle bundle ``pre``; ``live`` [V, B, n] bool or uint8. One launch
-    of the SAT kernel (counted on ``sat_hits.launches``)."""
+    of the SAT kernel (counted on ``sat_hits.launches`` and on this form's
+    own ``launches``)."""
     dev = _device_of(live)
     v, b, n, va = _check_lattice(lat, live, dev)
     if dev < 0:
         return sat_hits_lattice_plain(lat, live, pre)
-    ptrs, no, vo = _obstacle_ptrs(pre, v, dev)
+    ptrs, no, vo, cap = _obstacle_ptrs(pre, v, dev)
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
     _launched(build_kernels().sat_hits_lattice(
         *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, no, vo, _stream(dev)), sat_hits)
+        v, b, no, vo, cap, _stream(dev)), sat_hits, sat_hits_lattice)
     return out
+
+
+sat_hits_lattice.launches = 0

@@ -1,11 +1,19 @@
-"""Batched trim-lattice trajectory search (optimal path) — the optimizer.
+"""Batched trim-lattice trajectory search — the optimizer.
 
-Torch twin of pdmpc_tpu/ops/search.py's ``plan_trajectory``: the frontier
-is expanded layer by layer over the horizon; every (beam node x successor
-trim) candidate is cost-evaluated and collision-masked at once, then the
-best ``beam_width`` candidates survive. Every function takes a leading
-vehicle dim V, so one call plans a whole planning chunk and each search
-layer launches each collision kernel once.
+Torch twin of pdmpc_tpu/ops/search.py's two searches:
+
+- ``plan_trajectory`` (the optimal path): the frontier is expanded layer
+  by layer over the horizon; every (beam node x successor trim) candidate
+  is cost-evaluated and collision-masked at once, then the best
+  ``beam_width`` candidates survive;
+- ``plan_trajectory_sampled`` (TpuSampled): R independent rollouts, each
+  drawing its successor trim from a softmax over the negative one-step
+  cost by the Gumbel-max trick, dead at its first infeasible edge; the
+  cheapest surviving rollout wins. Its Gumbel noise comes in as an
+  argument (``rollout_noise`` draws the reference's).
+
+Every function takes a leading vehicle dim V, so one call plans a whole
+planning chunk and each search layer launches each collision kernel once.
 
 The collision checks go only through ``ops.collision``'s wrappers: the
 CUDA kernels on the card, their plain versions on the CPU. Obstacles are
@@ -14,7 +22,9 @@ checked by outline crossing (road scenarios, ``non_convex``) or by SAT
 check takes the layer's lattice (area table, parent trims, poses, yaw
 cosines and sines) and its live mask and returns the feasibility mask: the
 kernels build the candidates in registers and scan only live ones, so a
-layer's whole collision mask is one or two launches.
+layer's whole collision mask is one or two launches. The sampled search
+has no lattice, one candidate a rollout: it places the R drawn areas and
+checks them in the kernels' (cx, cy) form with the rollouts' live mask.
 
 Multiply-adds that XLA:CPU contracts in the reference (the child pose
 ``fma(c, dx, -(s * dy)) + x`` and ``fma(s, dx, c * dy) + y``, the same
@@ -30,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from pdmpc_torch import prng
 from pdmpc_torch.models.mpa import MpaTensors
 from pdmpc_torch.ops.collision import (
     Lattice,
@@ -299,6 +310,165 @@ def plan_trajectory(
     poses_path = torch.stack(poses_rev[::-1], dim=1)          # [V, Hp, 3]
 
     # --- occupied swept areas along the chosen path ----------------------
+    parent_poses = torch.cat([x0[:, None], poses_path[:, :-1]], dim=1)
+    parent_trims = torch.cat([trim0[:, None], trims_path[:, :-1]], dim=1)
+    areas = mpa.area[parent_trims, trims_path]                # [V,Hp,VA,2]
+    c = torch.cos(parent_poses[..., 2])[..., None]
+    s = torch.sin(parent_poses[..., 2])[..., None]
+    sx = fma(c, areas[..., 0], -(s * areas[..., 1])) + parent_poses[..., 0:1]
+    sy = fma(s, areas[..., 0], c * areas[..., 1]) + parent_poses[..., 1:2]
+    return PlanResult(
+        trims=trims_path,
+        poses=poses_path,
+        shapes=torch.stack([sx, sy], dim=-1),
+        cost=cost,
+        is_exhausted=is_exhausted,
+        n_expanded=n_expanded,
+    )
+
+
+def rollout_noise(seed: int, k: int, n_vehicles: int, hp: int,
+                  n_rollouts: int, n_trims: int, device) -> torch.Tensor:
+    """The sampled search's Gumbel noise [N, Hp, R, n] of every vehicle at
+    step ``k``: vehicle i's key is ``fold_in(fold_in(PRNGKey(seed), k),
+    i)`` (pdmpc_tpu/controller.py, after MonteCarloTreeSearch.m:31), split
+    into one key a layer, each drawing ``gumbel(key, (R, n))``, as the
+    reference's ``jax.random.categorical`` does inside its search. The key
+    does not depend on the search, so one threefry pass on ``device``
+    draws a step's noise for every vehicle and every solve of the step."""
+    step_key = prng.fold_in(prng.prng_key(seed, device), k)
+    keys = prng.fold_in(step_key[None],
+                        torch.arange(n_vehicles, device=device))  # [N, 2]
+    return prng.gumbel(prng.split(keys, hp), (n_rollouts, n_trims))
+
+
+def policy_logits(fan_d2: torch.Tensor, allowed: torch.Tensor,
+                  temperature: float) -> torch.Tensor:
+    """Logits of the rollout policy: ``-fan_d2 / temperature`` where the
+    trim is allowed, -inf elsewhere (0 where allowed at temperature <= 0).
+    XLA:CPU compiles the reference's division by the constant as a
+    product with the f32 reciprocal f32(1) / f32(temperature), which is
+    what is computed here (tests/test_torch_sampled.py holds it)."""
+    if temperature > 0.0:
+        one = torch.tensor(1.0, dtype=torch.float32)
+        inv_t = float(one / torch.tensor(temperature, dtype=torch.float32))
+        scores = -fan_d2 * inv_t
+    else:
+        scores = torch.zeros_like(fan_d2)
+    return torch.where(allowed, scores, torch.full_like(scores, -math.inf))
+
+
+def _placed(areas, pose, c, s):
+    """Areas [V, R, VA, 2] placed at poses [V, R, 3] with yaw cosines and
+    sines c, s [V, R, 1], in the kernels' vertex-major layout cx, cy
+    [V, VA, R]; fused as the reference's XLA path is."""
+    ax = fma(c, areas[..., 0], -(s * areas[..., 1])) + pose[..., 0:1]
+    ay = fma(s, areas[..., 0], c * areas[..., 1]) + pose[..., 1:2]
+    return ax.transpose(1, 2).contiguous(), ay.transpose(1, 2).contiguous()
+
+
+def plan_trajectory_sampled(
+    mpa: MpaTensors,
+    x0: torch.Tensor,            # [V, 3]
+    trim0: torch.Tensor,         # [V] i64
+    ref_points: torch.Tensor,    # [V, Hp, 2]
+    v_ref: torch.Tensor,         # [V, Hp]
+    obstacles: Obstacles,
+    dt: float,
+    noise: torch.Tensor,         # [V, Hp, R, n] Gumbel noise
+    boundary_segments: torch.Tensor | None = None,   # [V, S, 2, 2]
+    boundary_mask: torch.Tensor | None = None,       # [V, S]
+    segments_pre: SegmentsPre | None = None,         # precomputed bundle
+    temperature: float = 0.002,
+    non_convex: bool = False,
+) -> PlanResult:
+    """Sampled anytime search of V vehicles: R = ``noise.shape[2]``
+    rollouts each, root to Hp. Reference: pdmpc_tpu/ops/search.py
+    plan_trajectory_sampled (:658-816), the TPU re-design of
+    MonteCarloTreeSearch.m.
+
+    At each layer every rollout scores its whole successor fan (squared
+    distance to the layer's reference point), draws a trim as
+    ``argmax(noise + logits)`` (the first maximum; a rollout with no
+    allowed trim draws 0 and dies), moves, adds the drawn trim's step cost
+    and dies if the move's swept area hits an active obstacle (outline
+    crossing with ``non_convex``, else SAT) or, where boundary segments
+    are given, crosses the lanelet boundary (area without offset, the
+    larger-offset area at the last layer). The cheapest rollout alive at
+    Hp wins (the first on a tie); with none alive the plan is rollout 0's
+    and exhausted, at cost inf. ``n_expanded`` counts alive rollouts over
+    the layers. The collision checks are the kernels' (cx, cy) forms with
+    the live mask ``alive & any allowed``, so a dead rollout is not
+    scanned; their result is the reference's ``alive & any allowed &
+    ~collide``. SAT runs on the VA-vertex areas: the reference pads them
+    to VO by repeating the last vertex, which adds zero axes and repeated
+    projections only and changes no result. ``v_ref`` and ``dt`` are
+    unused, as in the reference.
+    """
+    del v_ref, dt
+    n = mpa.n_trims
+    hp = mpa.Hp
+    v, _, r = noise.shape[:3]
+    dev = x0.device
+    rows = torch.arange(v, device=dev)
+
+    precompute = precompute_outline if non_convex else precompute_obstacles
+    obs_pre = precompute(obstacles.polys.permute(2, 0, 1, 3, 4),
+                         obstacles.mask.permute(2, 0, 1))
+    if segments_pre is None and boundary_segments is not None:
+        segments_pre = precompute_segments(boundary_segments, boundary_mask)
+    obstacle_check = outline_hits if non_convex else sat_hits
+
+    pose = x0[:, None, :].expand(v, r, 3)
+    trim = trim0[:, None].expand(v, r)
+    g = torch.zeros((v, r), device=dev)
+    alive = torch.ones((v, r), dtype=torch.bool, device=dev)
+    n_expanded = torch.zeros((v,), dtype=torch.int64, device=dev)
+    poses_l, trims_l = [], []
+    for k in range(hp):
+        allowed = mpa.transition[k][trim]                     # [V, R, n]
+        c = torch.cos(pose[..., 2])[..., None]                # [V, R, 1]
+        s = torch.sin(pose[..., 2])[..., None]
+        mdx, mdy = mpa.dx[trim], mpa.dy[trim]
+        fan_x = fma(c, mdx, -(s * mdy)) + pose[..., 0:1]      # [V, R, n]
+        fan_y = fma(s, mdx, c * mdy) + pose[..., 1:2]
+        # the step cost of every trim of the fan: XLA:CPU fuses the x
+        # term here, fma(ex, ex, ey * ey), for the logits and for g alike
+        # (the beam search's step cost fuses the y term)
+        ex = fan_x - ref_points[:, k, None, None, 0]
+        ey = fan_y - ref_points[:, k, None, None, 1]
+        fan_d2 = fma(ex, ex, ey * ey)
+        logits = policy_logits(fan_d2, allowed, temperature)
+        child = torch.argmax(noise[:, k] + logits, dim=-1)    # [V, R]
+        pick = child[..., None]
+        child_x = fan_x.gather(2, pick)[..., 0]
+        child_y = fan_y.gather(2, pick)[..., 0]
+        child_yaw = pose[..., 2] + mpa.dyaw[trim, child]
+        g = g + fan_d2.gather(2, pick)[..., 0]
+
+        live = alive & allowed.any(dim=-1)
+        obs_k = type(obs_pre)(*(x[k] for x in obs_pre))
+        feasible = obstacle_check(*_placed(mpa.area[trim, child], pose, c,
+                                           s), obs_k, live)
+        if segments_pre is not None:
+            table = (mpa.area_large_offset if k == hp - 1
+                     else mpa.area_no_offset)
+            feasible = boundary_hits(*_placed(table[trim, child], pose, c,
+                                              s), segments_pre, feasible)
+        alive = feasible
+        n_expanded = n_expanded + alive.sum(dim=1)
+        pose = torch.stack([child_x, child_y, child_yaw], dim=-1)
+        trim = child
+        poses_l.append(pose)
+        trims_l.append(trim)
+
+    leaf_score = torch.where(alive, g, torch.full_like(g, math.inf))
+    best = torch.argmin(leaf_score, dim=-1)                   # first minimum
+    is_exhausted = ~alive.any(dim=-1)
+    cost = leaf_score[rows, best]
+    trims_path = torch.stack([t[rows, best] for t in trims_l], dim=1)
+    poses_path = torch.stack([p[rows, best] for p in poses_l], dim=1)
+
     parent_poses = torch.cat([x0[:, None], poses_path[:, :-1]], dim=1)
     parent_trims = torch.cat([trim0[:, None], trims_path[:, :-1]], dim=1)
     areas = mpa.area[parent_trims, trims_path]                # [V,Hp,VA,2]

@@ -1,15 +1,17 @@
 """Coupling-graph algebra: leveling, priorities, weights, cutting,
 components and fallback propagation.
 
-Torch twin of pdmpc_tpu/parallel/graph.py (all but the random strategies
-and the host-side ``unique_priorities_np``): integer/boolean matrix algebra
-on [N, N] tensors; ``fori_loop``s become Python loops.
+Torch twin of pdmpc_tpu/parallel/graph.py (all but the host-side
+``unique_priorities_np``): integer/boolean matrix algebra on [N, N]
+tensors; ``fori_loop``s become Python loops. The random strategies draw
+with ``pdmpc_torch.prng``, bit-equal to the reference's ``jax.random``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pdmpc_torch import prng
 from pdmpc_torch.ops.geometry import fma
 
 
@@ -69,6 +71,18 @@ def constant_priorities(n: int, device=None) -> torch.Tensor:
     return torch.arange(1, n + 1, dtype=torch.int64, device=device)
 
 
+def random_priorities(n: int, time_step: int, seed: int = 0,
+                      device=None) -> torch.Tensor:
+    """Random permutation of 1..N seeded by the time step: the permutation
+    of ``fold_in(PRNGKey(seed), time_step)`` (RandomPrioritizer.m; the
+    reference's ``jax.random.permutation``, bit for bit).
+
+    N numbers a step: drawn on the host, where the threefry pass costs no
+    kernel launches, and moved to ``device`` once."""
+    key = prng.fold_in(prng.prng_key(seed), time_step)
+    return prng.permutation(key, torch.arange(1, n + 1)).to(device)
+
+
 def coloring_priorities(adjacency: torch.Tensor) -> torch.Tensor:
     """Graph-coloring priorities minimizing the number of computation
     levels (ColoringPrioritizer.m:31-151): greedy coloring in SDO/LDO
@@ -108,6 +122,19 @@ def coloring_priorities(adjacency: torch.Tensor) -> torch.Tensor:
 def constant_weights(directed: torch.Tensor) -> torch.Tensor:
     """Reference: ConstantWeigher.m (weight 0.5 on every edge)."""
     return directed.to(torch.float32) * 0.5
+
+
+def random_weights(directed: torch.Tensor, time_step: int,
+                   seed: int = 0) -> torch.Tensor:
+    """Uniform weights on [0, 1) of the directed edges, seeded by the time
+    step: ``uniform(fold_in(PRNGKey(seed ^ 0x5EED), time_step), [N, N])``
+    (RandomWeigher.m; the reference's ``jax.random.uniform``, bit for bit).
+
+    N x N numbers a step: drawn on the host and moved to the graph's device
+    once, as ``random_priorities``."""
+    key = prng.fold_in(prng.prng_key(seed ^ 0x5EED), time_step)
+    w = prng.uniform(key, tuple(directed.shape)).to(directed.device)
+    return torch.where(directed.bool(), w, torch.zeros_like(w))
 
 
 def distance_weights(directed: torch.Tensor, positions: torch.Tensor,

@@ -1,11 +1,13 @@
 """Where a control step's time goes on the card.
 
     python -m pdmpc_torch.profile_step [--scenario commonroad|circle]
-                                       [--amount N]
+                                       [--amount N] [--sampled]
 
 Builds the default configuration of the scenario (CommonRoad: 20 vehicles
 by default, outline and boundary kernels; circle: 10 vehicles by default,
-the SAT kernel; beam 512, Hp 6) on CUDA, runs WARMUP steps, times TIMED
+the SAT kernel; beam 512, Hp 6; with ``--sampled`` the sampled search,
+256 rollouts, whose collision checks are the kernels' (cx, cy) forms) on
+CUDA, runs WARMUP steps, times TIMED
 steps with the host clock (each ending in ``torch.cuda.synchronize()``),
 traces PROFILED more steps with ``torch.profiler``, then times HOSTED
 more steps with the host clock around every call of the collision
@@ -33,7 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pdmpc_torch import resolve_device
-from pdmpc_torch.config import Config, ScenarioType
+from pdmpc_torch.config import Config, OptimizerType, ScenarioType
 from pdmpc_torch.controller import initial_state, make_prioritized_step
 from pdmpc_torch.experiment import create_scenario
 from pdmpc_torch.models.mpa import build_mpa
@@ -42,22 +44,27 @@ from pdmpc_torch.ops import search
 
 WARMUP, TIMED, HOSTED, PROFILED = 3, 8, 3, 4
 TOP = 15
-# collision kernel -> the search's wrapper that launches it, and a
-# fragment of its device kernels' names (templates of csrc/collision.cu)
+# collision kernel -> a fragment of its device kernels' names (templates of
+# csrc/collision.cu); the beam search calls its lattice-form wrapper
+# ("<kernel>_lattice"), the sampled search its (cx, cy) form ("<kernel>")
 KERNELS = {
-    "outline_hits": ("outline_hits_lattice", "OutlineSegs"),
-    "boundary_hits": ("boundary_hits_lattice", "BoundarySegs"),
-    "sat_hits": ("sat_hits_lattice", "sat_hits_kernel"),
+    "outline_hits": "OutlineSegs",
+    "boundary_hits": "BoundarySegs",
+    "sat_hits": "sat_hits_kernel",
 }
 
 
-def host_timed(step, state, k, n):
+def wrapper_of(kernel: str, sampled: bool) -> str:
+    return kernel if sampled else kernel + "_lattice"
+
+
+def host_timed(step, state, k, n, sampled):
     """Run ``n`` steps with the host clock around each call of the
     search's collision wrappers; returns the state, the next step index
     and {wrapper: [calls, seconds]}."""
     spent = {}
     originals = {}
-    for name, _ in KERNELS.values():
+    for name in (wrapper_of(kernel, sampled) for kernel in KERNELS):
         fn = originals[name] = getattr(search, name)
         spent[name] = [0, 0.0]
 
@@ -87,6 +94,8 @@ def main(argv=None) -> int:
                                  if t != ScenarioType.mixed])
     parser.add_argument("--amount", type=int, default=None,
                         help="vehicles (default: 20 commonroad, 10 circle)")
+    parser.add_argument("--sampled", action="store_true",
+                        help="the sampled search instead of the beam search")
     args = parser.parse_args(argv)
     scenario = ScenarioType(args.scenario)
     amount = args.amount or (10 if scenario == ScenarioType.circle else 20)
@@ -97,7 +106,9 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     cfg = Config(scenario_type=scenario, amount=amount,
-                 T_end=0.2 * (WARMUP + TIMED + HOSTED + PROFILED))
+                 T_end=0.2 * (WARMUP + TIMED + HOSTED + PROFILED),
+                 optimizer_type=(OptimizerType.TpuSampled if args.sampled
+                                 else OptimizerType.TpuOptimal))
     cfg = cfg.validate()
     mpa = build_mpa(cfg)
     mpa_t = mpa.to_tensors_for(cfg, device)
@@ -132,7 +143,7 @@ def main(argv=None) -> int:
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
     events = prof.key_averages()
     # last, so the timed and traced steps stay those of earlier versions
-    state, k, spent = host_timed(step, state, k, HOSTED)
+    state, k, spent = host_timed(step, state, k, HOSTED, args.sampled)
 
     def per_step(names):
         return sum(e.count for e in events if e.key in names) / PROFILED
@@ -155,7 +166,8 @@ def main(argv=None) -> int:
         "card": card,
         "config": {"scenario": cfg.scenario_type.value,
                    "amount": cfg.amount, "beam_width": cfg.beam_width,
-                   "Hp": cfg.Hp},
+                   "Hp": cfg.Hp, "sampled": args.sampled,
+                   "rollouts": cfg.mcts_n_rollouts},
         "step_ms_median": median_ms,
         "step_ms_traced": traced_ms,
         "device_ms_per_step": busy_ms if device_ops else None,
@@ -171,10 +183,10 @@ def main(argv=None) -> int:
                                     "cudaDeviceSynchronize"}),
         "kernels": {},
     }
-    for name, (wrapper, fragment) in KERNELS.items():
+    for name, fragment in KERNELS.items():
         ops = [e for e in device_ops if fragment in e.key]
         count = sum(e.count for e in ops) / PROFILED
-        calls, seconds = spent[wrapper]
+        calls, seconds = spent[wrapper_of(name, args.sampled)]
         summary["kernels"][name] = {
             "launches_per_step": launches[name],
             "device_ms_per_step": device_ms(ops),

@@ -662,3 +662,53 @@ def test_lattice_wrappers_check_inputs(request, kernel):
         fn(cx, cy, pre, live.reshape(2, -1).float())
     with pytest.raises(ValueError):
         fn(cx.to("meta"), cy.to("meta"), pre)
+
+
+# chip_smoke.py phase 13's oversize bundles and the main paths' largest
+# stages: (kernel, obstacles or segments, entries staged, stage plan at the
+# wrappers' budgets: entries a round, bytes, rounds at most)
+STAGE_PLANS = [
+    ("outline_hits", 256, 4096, (3072, 49152, 2)),
+    ("outline_hits", 1024, 16384, (3072, 49152, 6)),
+    ("outline_hits", 192, 3072, (3072, 49152, 1)),     # mixed-64
+    ("outline_hits", 64, 1024, (1024, 16384, 1)),      # phase 2
+    ("boundary_hits", 4096, 4096, (3072, 49152, 2)),
+    ("boundary_hits", 16384, 16384, (3072, 49152, 6)),
+    ("boundary_hits", 192, 192, (192, 3072, 1)),       # phase 2
+    ("sat_hits", 128, 128, (124, 49104, 2)),           # circle-40
+    ("sat_hits", 640, 640, (124, 49104, 6)),
+    ("sat_hits", 32, 32, (32, 12672, 1)),              # phase 2
+]
+
+
+@pytest.mark.parametrize("kernel,count,entries,want", STAGE_PLANS)
+def test_stage_plan(kernel, count, entries, want):
+    """The wrappers stage a bundle in rounds of as many segments (16 B
+    each) or SAT obstacles of 16 vertices (396 B each) as the 48 KB budget
+    holds; the plan is host arithmetic, and each wrapper's bundle check
+    hands the kernel that plan's entries a round."""
+    entry = (tc.sat_stage_bytes(16) if kernel == "sat_hits"
+             else tc.SEG_STAGE_BYTES)
+    plan = tc.stage_plan(entries, entry)
+    assert tc.stage_plan(entries, entry, tc.STAGE_BYTES) == plan
+    assert tuple(plan) == want
+    if kernel == "outline_hits":
+        pre = tc.precompute_outline(torch.zeros((1, count, 16, 2)),
+                                    torch.ones((1, count), dtype=torch.bool))
+        cap = tc._outline_ptrs(pre, 1, -1)[3]
+    elif kernel == "boundary_hits":
+        pre = tc.precompute_segments(torch.zeros((1, count, 2, 2)),
+                                     torch.ones((1, count), dtype=torch.bool))
+        cap = tc._segment_ptrs(pre, 1, -1)[2]
+    else:
+        pre = tc.precompute_obstacles(torch.zeros((1, count, 16, 2)),
+                                      torch.ones((1, count), dtype=torch.bool))
+        cap = tc._obstacle_ptrs(pre, 1, -1)[3]
+    assert cap == plan.cap
+    # a larger budget takes fewer rounds, never more; out of range raises
+    wider = tc.stage_plan(entries, entry, tc.MAX_STAGE_BYTES)
+    assert wider.rounds <= plan.rounds and wider.bytes <= tc.MAX_STAGE_BYTES
+    with pytest.raises(ValueError):
+        tc.stage_plan(entries, entry, tc.MAX_STAGE_BYTES + 1)
+    with pytest.raises(ValueError):
+        tc.stage_plan(entries, entry, entry - 1)

@@ -45,32 +45,46 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["random_priority", "random_weight",
-                                  "sampled", "hdv", "centralized"])
+                                  "sampled", "hdv", "centralized",
+                                  "computation_mode"])
 def test_unported_config_raises(what):
-    """Random priorities and weights, the sampled optimizer, human-driven
-    vehicles and centralized planning are not ported yet: the entry point
-    refuses them."""
+    """Human-driven vehicles, centralized planning and the parallel
+    computation mode are not ported yet: the entry point refuses them.
+    Random priorities and weights and the sampled optimizer, ported since,
+    pass the same check and build a step."""
     from pdmpc_torch import (
+        ComputationMode,
         Config,
         ManualControlConfig,
         OptimizerType,
         PriorityStrategies,
         WeightStrategies,
     )
-    from pdmpc_torch.experiment import run_experiment
+    from pdmpc_torch.controller import check_main_path, make_prioritized_step
+    from pdmpc_torch.experiment import create_scenario, run_experiment
+    from pdmpc_torch.models.mpa import build_mpa
 
     kw, match = {
         "random_priority": (dict(priority=PriorityStrategies.random_priority),
-                            "random_priority"),
-        "random_weight": (dict(weight=WeightStrategies.random_weight),
-                          "random_weight"),
-        "sampled": (dict(optimizer_type=OptimizerType.TpuSampled),
-                    "the sampled optimizer"),
+                            None),
+        "random_weight": (dict(weight=WeightStrategies.random_weight), None),
+        "sampled": (dict(optimizer_type=OptimizerType.TpuSampled), None),
         "hdv": (dict(manual_control_config=ManualControlConfig(
             is_active=True, amount=1, hdv_ids=(0,))),
                 "human-driven vehicles"),
         "centralized": (dict(is_prioritized=False), "centralized planning"),
+        "computation_mode": (dict(
+            computation_mode=ComputationMode.parallel_physically),
+            "computation_mode=parallel_physically"),
     }[what]
+    cfg = Config(amount=3, T_end=0.2, beam_width=8, **kw)
+    if match is None:
+        cfg = cfg.validate()
+        check_main_path(cfg)
+        mpa = build_mpa(cfg)
+        scenario = create_scenario(cfg, mpa).to_tensors("cpu")
+        assert callable(make_prioritized_step(
+            cfg, mpa.to_tensors_for(cfg, "cpu"), scenario))
+        return
     with pytest.raises(NotImplementedError, match=match):
-        run_experiment(Config(amount=3, T_end=0.2, beam_width=8, **kw),
-                       device="cpu")
+        run_experiment(cfg, device="cpu")

@@ -124,6 +124,43 @@ def expressions(n, seed=0):
         "rounded": rounded(axx.astype(np.float64) + ayy),
     })
 
+    # the sampled search's rollout policy: the step cost of every trim of a
+    # rollout's fan [R, n], scaled by the temperature into logits
+    # (ops/search.py plan_trajectory_sampled, :725-728), and the drawn
+    # trim's cost added to the rollout's g (:741)
+    fan = rng.uniform(0, 4, (m, 12, 2)).astype(F32)
+    ref2 = rng.uniform(0, 4, (2,)).astype(F32)
+    temperature = 0.01
+    jl = jax.jit(lambda f, r: -((f[..., 0] - r[0]) ** 2
+                                + (f[..., 1] - r[1]) ** 2) / temperature)(
+        fan, ref2)
+    gm = rng.uniform(0, 3, (m,)).astype(F32)
+    child = rng.integers(0, 12, m)
+    jgm = jax.jit(lambda g, f, r, c: g + (
+        (f[..., 0] - r[0]) ** 2 + (f[..., 1] - r[1]) ** 2)[
+            jnp.arange(f.shape[0]), c])(gm, fan, ref2, child)
+    e = fan - ref2
+    ex2, ey2 = e[..., 0], e[..., 1]
+    xx2 = rounded(ex2.astype(np.float64) * ex2)
+    yy2 = rounded(ey2.astype(np.float64) * ey2)
+    d2 = {"port: fma(ex, ex, ey*ey)": port_fma(ex2, ex2, yy2),
+          "fma(ey, ey, ex*ex)": fma_exact(ey2, ey2, xx2),
+          "rounded": rounded(xx2.astype(np.float64) + yy2)}
+    inv_t = F32(1) / F32(temperature)
+    out["rollout logits -sum((fan - ref)**2) / T"] = (jl, {
+        "port: -fma(ex, ex, ey*ey) * f32(1/T)": -d2[
+            "port: fma(ex, ex, ey*ey)"] * inv_t,
+        "-fma(ex, ex, ey*ey) / T": rounded(-d2[
+            "port: fma(ex, ex, ey*ey)"].astype(np.float64)
+            / F32(temperature)),
+        "-fma(ey, ey, ex*ex) * f32(1/T)": -d2["fma(ey, ey, ex*ex)"] * inv_t,
+        "-rounded * f32(1/T)": -d2["rounded"] * inv_t,
+    })
+    rows = np.arange(m)
+    out["rollout cost g + fan_d2[child]"] = (jgm, {
+        p: rounded(gm.astype(np.float64) + v[rows, child])
+        for p, v in d2.items()})
+
     # FCA's SAT (geometry._sat_half): a rectangle's 4 axes on 4 vertices
     # by a Precision.HIGHEST matmul, vmapped over the rectangle pairs
     rect_axes = rng.normal(size=(m, 4, 2)).astype(F32)
@@ -167,7 +204,9 @@ def forms():
                                   "child y = s*dx + c*dy + y",
                                   "cost g + sum((p - ref)**2)",
                                   "SAT projection einsum",
-                                  "FCA SAT projection matmul"])
+                                  "FCA SAT projection matmul",
+                                  "rollout logits -sum((fan - ref)**2) / T",
+                                  "rollout cost g + fan_d2[child]"])
 def test_port_placement_matches_xla(forms, name):
     want, placements = forms[name]
     want = np.asarray(want)

@@ -15,6 +15,7 @@ on the same inputs (made from numpy seeds):
 """
 
 import enum
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -155,11 +156,16 @@ def test_fca_priorities_touching(seed):
 
 
 # (P candidate rows, N vehicles): XLA:CPU sums the one-hot contraction in
-# four lanes at P >= 2 with N in {8, 11, 12, 14, 15, 16} (and N in
-# {4, 6, 7} at P >= 8), one vehicle after another elsewhere
+# four lanes below P = 64 at P >= 2 with N in {8, 11, 12, 14, 15, 16} (and
+# N in {4, 6, 7} at P >= 8), in four or two lanes for most N up to 48 at
+# P >= 64, one vehicle after another elsewhere (controller._vote_lanes).
+# The P of max_priority_permutations 32 and 64 are swept over N = 2..64;
+# explorative voting's P (at most N) is sampled above 16.
 VOTE_SHAPES = [(1, 3), (1, 8), (2, 5), (2, 8), (3, 11), (4, 3), (8, 3),
                (8, 4), (8, 6), (8, 9), (16, 7), (16, 8), (16, 12), (16, 13),
-               (16, 16), (16, 20), (3, 20), (20, 20), (8, 64)]
+               (16, 16), (16, 20), (3, 20), (20, 20), (8, 64), (12, 14),
+               (40, 40), (63, 63), (128, 5), (128, 48), (256, 21)] + [
+                   (p, n) for p in (32, 64) for n in range(2, 65)]
 
 
 @pytest.mark.parametrize("p_cnt,n", VOTE_SHAPES)
@@ -195,6 +201,35 @@ def test_vote_totals_bit_equal(p_cnt, n):
         got = tctl._subgraph_totals(cost_l.T, torch.as_tensor(belonging))
         np.testing.assert_array_equal(got.numpy(), want,
                                       err_msg=f"trial {trial}")
+
+
+@pytest.mark.parametrize("p_cnt,n", [(512, 3), (4, 65)])
+def test_vote_order_unmapped_shape_warns(p_cnt, n):
+    """Past the mapped shapes (N <= 64; P <= 64 or P in {128, 256}) the
+    vote warns that its totals may part an ulp from the reference's; a
+    mapped shape does not."""
+    def solve(directed_p):
+        planned = TPlan(
+            trims=torch.zeros((n, 1), dtype=torch.int64),
+            poses=torch.zeros((n, 1, 3)), shapes=torch.zeros((n, 1, 5, 2)),
+            cost=directed_p.float().sum(dim=1),
+            is_exhausted=torch.zeros((n,), dtype=torch.bool),
+            n_expanded=torch.zeros((n,), dtype=torch.int64))
+        return planned, torch.zeros((n, 1, 16, 2)), directed_p, \
+            tg.kahn_levels(directed_p)[0]
+
+    comm = TComm(n)
+    belonging = torch.zeros((n,), dtype=torch.int64)
+    for rows in (p_cnt, 2):
+        stack = torch.zeros((rows, n, n), dtype=torch.bool)
+        invalid = torch.zeros((rows, n), dtype=torch.bool)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tctl._vote_per_subgraph(comm, solve, stack, belonging, invalid,
+                                    solve_rows=range(1))
+        said = [w for w in caught if "summation order" in str(w.message)]
+        assert bool(said) == (not tctl.vote_order_mapped(rows, n)), (rows, n)
+        assert bool(said) == (rows > 256 or n > 64), (rows, n)
 
 
 def _fake_solves(n, w):
