@@ -75,7 +75,23 @@ Phases, any failure exits non-zero:
 15. the matrix goldens with random strategies or the sampled search:
    mx03, mx10, mx11 and mx13 must match exactly, the six sampled cells
    (mx02, mx04, mx05, mx09, mx12, mx14) must meet the gate and whether
-   they match exactly is printed; each run's launches checked.
+   they match exactly is printed; each run's launches checked;
+16. batched rollouts, B scenarios planned in one merged chunk loop a
+   step: (a) bench.py's headline shape, 32 identical starts of phase 9's
+   configuration, every entry equal to entry 0 and entry 0 to phase 9's
+   run bit for bit, phase 9's gate; (b) ``monte_carlo_sweep`` of the
+   same configuration, 32 starts shifted up to 1 m along their paths,
+   every entry collision-free, moving and on the map's lanelets (but a
+   pair whose shifted starts overlap, and the vehicles that the
+   reference too drives off the map, KNOWN_OFF_MAP), at least two level
+   sequences, four entries run alone and held bit for bit; (c)
+   bench.py's curve shape (cr20 coloring, beam 256, 5 steps, chunk 3) at
+   B = 32, 128, 512 and 1024 and (d) its Monte-Carlo point (circle, 4
+   vehicles, beam 64, 5 steps, B = 4096), each with solves/s, launches,
+   device ms of one profiled step, peak memory and the host ms of the
+   coloring and the merged schedule printed; (e) the fullest merged chunk
+   of (b) planned with kernels and with plain versions, every layer's
+   lattice-form call held bit for bit and timed.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -83,10 +99,11 @@ JSON: per kernel the keys of the port's contract (phase 2's all-live
 numbers, launches from phases 3 and 5), ``live_mask``, ``path`` (phase 8,
 per layer and per plan; for the road kernels also ``path_mixed64``,
 phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
-``path_sampled`` (phase 14's sampled chunk, (cx, cy) form), ``oversize``
+``path_sampled`` (phase 14's sampled chunk, (cx, cy) form),
+``path_batch`` (for the road kernels: phase 16e's merged chunk), ``oversize``
 (phase 13, per size and budget), ``launches_per_step`` and
 ``launches_by_path`` (launches, launches a step and lattice-form launches
-of every driven run of phases 3, 5 and 9 to 15); for SAT also ``lattice``
+of every driven run of phases 3, 5 and 9 to 16); for SAT also ``lattice``
 (phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
 and device ms of one step's threefry noise at cr20's sampled shape).
 """
@@ -98,6 +115,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from functools import partial
 
 import numpy as np
@@ -646,10 +664,10 @@ def road_offroad(res, cfg, n_road, route=True):
     applied pose center leaves the drivable corridor of its own
     reference-loop lanelets (tests/golden.py vehicle_centers_offroad on
     the port's own road tables) or, with ``route`` False, of every lanelet
-    of the map. A vehicle still at its start pose is not counted: that
-    pose is the first point of its centerline, on the edge where its first
-    lanelet's corridor begins, which the crossing-number test may count
-    either way."""
+    of the map; for a batch result, (entry, step, vehicle). A vehicle
+    still at its start pose is not counted: that pose is the first point
+    of its centerline, on the edge where its first lanelet's corridor
+    begins, which the crossing-number test may count either way."""
     import torch
 
     from pdmpc_torch.experiment import create_scenario
@@ -660,16 +678,21 @@ def road_offroad(res, cfg, n_road, route=True):
     cfg = cfg.validate()
     sc = create_scenario(cfg, build_mpa(cfg))
     rings = road_to_tensors(sc.road, "cpu").corridor_rings
-    centers = torch.as_tensor(res.infos.poses[:, :, 0, :2])  # [k, N, 2]
+    poses = res.infos.poses
+    batch = poses.ndim == 5
     bad = []
-    for v in range(n_road):
-        ids = (sorted(set(int(i) for i in sc.lanelet_indices[v])) if route
-               else list(range(rings.shape[0])))
-        inside = point_in_ring(centers[:, v, None], rings[ids][None]).any(-1)
-        start = torch.as_tensor(sc.start_poses[v, :2], dtype=centers.dtype)
-        at_start = (centers[:, v] - start).abs().amax(dim=-1) < 1e-6
-        bad += [(k, v) for k in (~inside & ~at_start).nonzero().flatten()
-                .tolist()]
+    for e, entry in enumerate(poses if batch else poses[None]):
+        centers = torch.as_tensor(entry[:, :, 0, :2])         # [k, N, 2]
+        for v in range(n_road):
+            ids = (sorted(set(int(i) for i in sc.lanelet_indices[v]))
+                   if route else list(range(rings.shape[0])))
+            inside = point_in_ring(centers[:, v, None],
+                                   rings[ids][None]).any(-1)
+            start = torch.as_tensor(sc.start_poses[v, :2],
+                                    dtype=centers.dtype)
+            at_start = (centers[:, v] - start).abs().amax(dim=-1) < 1e-6
+            bad += [((e, k, v) if batch else (k, v)) for k in
+                    (~inside & ~at_start).nonzero().flatten().tolist()]
     return bad
 
 
@@ -1128,6 +1151,224 @@ def voting(coll, run_experiment, Config, card, dims, record):
               f"times the constant run's", flush=True)
 
 
+def batch_entry(res, i):
+    """Entry ``i`` of a batch result as a single run's result."""
+    return replace(res, infos=type(res.infos)(*(x[i] for x in res.infos)))
+
+
+def differing_fields(a, b):
+    """The record fields of infos ``a`` and ``b`` that are not equal."""
+    return [f for f, x, y in zip(a._fields, a, b)
+            if not np.array_equal(np.asarray(x), np.asarray(y))]
+
+
+# (entry, vehicle) of phase 16b's batch that leave the map's lanelets: the
+# reference's step does the same from that entry's start (a vehicle
+# shifted along its path takes a branch off its route whose lanelet ends
+# open at the map's edge; tests/test_torch_sweep_offmap.py)
+KNOWN_OFF_MAP = {(24, 9), (30, 10), (30, 14)}
+
+
+def check_entries(res, cfg, label, dims, n_road, starts, min_moved=0.3):
+    """Each entry of a batch collision-free, every vehicle moving more
+    than ``min_moved`` m, the first ``n_road`` vehicles on the map's
+    lanelets but those of KNOWN_OFF_MAP (the steps off the map and off
+    their own route are printed). A pair whose
+    start poses ``starts`` [B, N, 3] already overlap with the planning
+    offset ``cfg.offset`` added (a start shifted onto the vehicle ahead:
+    neither can plan a move) is exempt from the collision check and its
+    vehicles from the move check; those pairs are printed."""
+    overlapping = {}
+    grown = [d + 2 * cfg.offset for d in dims]
+    for i in range(res.infos.poses.shape[0]):
+        pairs = {(a, b) for _, a, b in vehicle_collisions(starts[i][None],
+                                                          *grown)}
+        if pairs:
+            overlapping[i] = sorted(pairs)
+        exempt = {v for pair in pairs for v in pair}
+        poses = res.infos.poses[i, :, :, 0]
+        collisions = [c for c in vehicle_collisions(poses, *dims)
+                      if (c[1], c[2]) not in pairs]
+        if collisions:
+            raise AssertionError(f"{label} entry {i}: vehicle collisions: "
+                                 f"{collisions[:10]}")
+        moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
+        stuck = [v for v in np.flatnonzero(moved <= min_moved)
+                 if v not in exempt]
+        if stuck:
+            raise AssertionError(f"{label} entry {i}: stuck vehicles "
+                                 f"{stuck}: moved {moved}")
+    print(f"{label}: (entry: vehicle pairs) overlapping at their shifted "
+          f"starts, exempt: {overlapping}", flush=True)
+    if n_road:
+        offroad = road_offroad(res, cfg, n_road, route=False)
+        unknown = [x for x in offroad if (x[0], x[2]) not in KNOWN_OFF_MAP]
+        if unknown:
+            raise AssertionError(f"{label}: off the road: {unknown[:10]}")
+        print(f"{label}: (entry, step, vehicle) off the map's lanelets, as "
+              f"the reference: {offroad}; off its own route's lanelets: "
+              f"{road_offroad(res, cfg, n_road)}", flush=True)
+
+
+def batch_tensors(cfg, dev="cuda"):
+    """(validated configuration, MPA tensors, scenario tensors) on
+    ``dev``."""
+    from pdmpc_torch.experiment import create_scenario
+    from pdmpc_torch.models.mpa import build_mpa
+
+    cfg = cfg.validate()
+    mpa = build_mpa(cfg)
+    return (cfg, mpa.to_tensors_for(cfg, dev),
+            create_scenario(cfg, mpa).to_tensors(dev))
+
+
+def profiled_step(cfg, state, k):
+    """One batched step of ``cfg`` from ``state`` (the batch's final state)
+    at step ``k`` under torch.profiler: its launches, device ms and traced
+    host ms."""
+    from pdmpc_torch.controller import StepState, make_prioritized_step
+    from pdmpc_torch.profile_step import LAUNCHES, device_events, traced
+
+    cfg, mpa_t, sc_t = batch_tensors(cfg)
+    step = make_prioritized_step(cfg, mpa_t, sc_t)
+    state = StepState(*(x.to("cuda") for x in state))
+    _, _, events, traced_ms = traced(step, state, k, 1)
+    return {"launches": sum(e.count for e in events if e.key in LAUNCHES),
+            "device_ms": sum(e.self_device_time_total
+                             for e in device_events(events)) / 1e3,
+            "traced_ms": traced_ms}
+
+
+def batch_curve(torch, coll, cfg, batches, launched, label, dims, record):
+    """Phase 16c and d: ``run_experiment_batch`` of ``cfg`` at each batch
+    size of ``batches`` (identical starts): every entry equal to entry 0,
+    which must be collision-free; solves/s, launches, one profiled step's
+    launches and device ms, the peak device memory and the host ms a step
+    of the coloring and the merged schedule printed."""
+    from pdmpc_torch.experiment import run_experiment_batch
+    from pdmpc_torch.profile_step import HOST_LOOPS, host_clocks
+
+    for b in batches:
+        name = f"{label} B={b}"
+        torch.cuda.reset_peak_memory_stats()
+        with host_clocks(HOST_LOOPS) as spent:
+            launches, res = counted_run(
+                coll, partial(run_experiment_batch, n_scenarios=b), cfg,
+                name, launched)
+        peak = torch.cuda.max_memory_allocated()
+        record(name, launches, res)
+        entry0 = batch_entry(res, 0)
+        for i in range(1, b):
+            if differing_fields(batch_entry(res, i).infos, entry0.infos):
+                raise AssertionError(f"{name}: entry {i} differs from "
+                                     f"entry 0")
+        collisions = vehicle_collisions(entry0.infos.poses[:, :, 0], *dims)
+        if collisions:
+            raise AssertionError(f"{name}: vehicle collisions "
+                                 f"{collisions[:10]}")
+        point = {"batch": b,
+                 "vehicle_solves_per_s":
+                     res.timings["vehicle_solves_per_second"],
+                 "step_ms": [x * 1e3 for x in res.timings["step_seconds"]],
+                 "kernel_launches_per_step": {
+                     k: v / res.n_steps for k, v in launches.items()},
+                 "max_memory_allocated": peak,
+                 "host_ms_per_step": {k: v[1] * 1e3 / res.n_steps
+                                      for k, v in spent.items()},
+                 "profiled_step": profiled_step(cfg, res.final_state,
+                                                res.n_steps)}
+        print(f"{name}: {json.dumps(point)}", flush=True)
+
+
+def batched_rollouts(torch, coll, Config, card, dims, record, headline,
+                     headline_res, rows):
+    """Phase 16: the batched rollouts (see the module docstring)."""
+    from pdmpc_torch import PriorityStrategies, ScenarioType
+    from pdmpc_torch.controller import StepState, make_run
+    from pdmpc_torch.eval.experiments import (
+        monte_carlo_sweep,
+        perturbed_states,
+    )
+    from pdmpc_torch.experiment import run_experiment_batch
+
+    road_kernels = ("outline_hits", "boundary_hits")
+    # (a) bench.py's headline shape: 32 identical starts
+    launches, res = counted_run(
+        coll, partial(run_experiment_batch, n_scenarios=32), headline,
+        "batch headline", road_kernels)
+    record("batch32 headline", launches, res)
+    entry0 = batch_entry(res, 0)
+    for i in range(1, 32):
+        bad = differing_fields(batch_entry(res, i).infos, entry0.infos)
+        if bad:
+            raise AssertionError(f"batch headline: entry {i} differs from "
+                                 f"entry 0 in {bad}")
+    bad = differing_fields(entry0.infos, headline_res.infos)
+    if bad:
+        raise AssertionError(f"batch headline: entry 0 differs from phase "
+                             f"9's run in {bad}")
+    headline_gate(entry0)
+    print(f"batch headline ({card}): 32 entries equal, entry 0 equal to "
+          f"phase 9's run in every field; "
+          f"{res.timings['vehicle_solves_per_second']:.1f} vehicle-solves/s, "
+          f"{step_line(res, launches)}", flush=True)
+
+    # (b) the perturbed Monte-Carlo batch
+    n_mc, arc = 32, 1.0
+    launches, res = counted_run(
+        coll, partial(monte_carlo_sweep, n_scenarios=n_mc,
+                      perturb_start_arc=arc), headline,
+        "batch monte carlo", road_kernels)
+    record("batch32 monte carlo", launches, res)
+    cfg, mpa_t, sc_t = batch_tensors(headline)
+    states = perturbed_states(sc_t, cfg, n_mc, arc)
+    check_entries(res, headline, "batch monte carlo", dims, headline.amount,
+                  states.pose.cpu().numpy())
+    sequences = {}
+    for i in range(n_mc):
+        sequences.setdefault(res.infos.levels[i].tobytes(), []).append(i)
+    if len(sequences) < 2:
+        raise AssertionError("batch monte carlo: every entry has the same "
+                             "level sequence")
+    # one entry of each level sequence first, then the others
+    picks = ([group[0] for group in sequences.values()]
+             + [i for group in sequences.values() for i in group[1:]])[:4]
+    for i in picks:
+        _, alone = make_run(cfg)(StepState(*(x[i:i + 1] for x in states)),
+                                 mpa_t, sc_t)
+        bad = differing_fields(type(alone)(*(x[0].cpu() for x in alone)),
+                               batch_entry(res, i).infos)
+        if bad:
+            raise AssertionError(f"batch monte carlo: entry {i} alone "
+                                 f"differs in {bad}")
+    print(f"batch monte carlo ({card}): {n_mc} entries, {len(sequences)} "
+          f"distinct level sequences, collision-free, moving, on the map; "
+          f"entries {picks} alone equal to their batch entries; "
+          f"{res.timings['vehicle_solves_per_second']:.1f} vehicle-solves/s, "
+          f"{step_line(res, launches)}", flush=True)
+
+    # (c) bench.py's curve shape and (d) its Monte-Carlo point
+    coloring = PriorityStrategies.coloring_priority
+    batch_curve(
+        torch, coll, Config(amount=20, T_end=1.0, beam_width=256,
+                            priority=coloring, level_chunk=3),
+        (32, 128, 512, 1024), road_kernels, "curve cr20", dims, record)
+    batch_curve(
+        torch, coll, Config(scenario_type=ScenarioType.circle, amount=4,
+                            T_end=1.0, beam_width=64, priority=coloring),
+        (4096,), ("sat_hits",), "monte carlo circle4", dims, record)
+
+    # (e) the fullest merged chunk of (b), with kernels and plain versions
+    calls = plans_with_plain_versions(
+        torch, coll, partial(monte_carlo_sweep, n_scenarios=n_mc,
+                             perturb_start_arc=arc),
+        Config(amount=20, T_end=1.0, beam_width=256, priority=coloring),
+        "batch chunk", rank=lambda a, kw: (a[1].shape[0],
+                                           active_slots(a, kw)))
+    path_shapes(torch, coll, calls, rows, road_kernels, "batch chunk",
+                row_key="path_batch")
+
+
 # keys of a kernel's row in the JSON line, and their types
 CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
             "launches": int, "max_abs_err": float, "ms": float,
@@ -1230,10 +1471,11 @@ def main() -> int:
     # ---- 9. headline: cr20 coloring at beam 256 ---------------------------
     headline = Config(amount=20, T_end=4.0, beam_width=256,
                       priority=PriorityStrategies.coloring_priority)
-    launches, res = drive(coll, run_experiment, headline, card, "headline",
-                          road_kernels, dims, n_road=headline.amount)
-    record("headline", launches, res)
-    headline_gate(res)
+    launches, headline_res = drive(coll, run_experiment, headline, card,
+                                   "headline", road_kernels, dims,
+                                   n_road=headline.amount)
+    record("headline", launches, headline_res)
+    headline_gate(headline_res)
     # ---- 10. mixed fleet --------------------------------------------------
     mixed64 = Config(scenario_type=ScenarioType.mixed, amount=64, T_end=2.0,
                      beam_width=128)
@@ -1321,6 +1563,9 @@ def main() -> int:
                                     launched, exact_required=exact,
                                     lattice=exact)
         record(name, launches, res)
+    # ---- 16. batched rollouts: one merged chunk loop for B scenarios -----
+    batched_rollouts(torch, coll, Config, card, dims, record, headline,
+                     headline_res, rows)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]

@@ -20,8 +20,17 @@ scenarios run, with static obstacles where the scenario has them. The
 random strategies and the rollout policy draw with ``pdmpc_torch.prng``,
 bit-equal to the reference's ``jax.random``.
 
+The step plans a batch of B scenarios at once (state and records with a
+leading scenario dim, the reference's ``jax.vmap`` over scenarios): the
+per-vehicle traffic info runs on the B*N vehicles flattened, the graph
+stage on [B, N, N], and one merged chunk loop plans every scenario's
+chunks, a planning row being a (scenario, vehicle) pair with its own
+scenario's obstacles. Each scenario's records equal those of planning it
+alone; a single run is a batch of one.
+
 HDVs, centralized search and the dense level loop are not ported yet and
-raise NotImplementedError.
+raise NotImplementedError, as do the voting modes in a batch of more than
+one scenario.
 """
 
 from __future__ import annotations
@@ -67,14 +76,34 @@ COUPLING_AREA_THRESHOLD = 1e-3
 N_PREDICTED_LANELETS = 8
 
 
+# Vehicles a pass of the corridor clip: its largest temporary, the
+# support projection of [vehicles, Hp, ~3,000 points, K] candidate
+# vertices, takes some 1.2 MB a vehicle at cr20's shapes (22 GiB at 1,024
+# scenarios of 20), so a batch is clipped 1,024 vehicles at a time.
+CLIP_ROWS = 1024
+
+
 def _n_predicted_lanelets(hp: int) -> int:
     return max(N_PREDICTED_LANELETS, hp + 1)
 
 
+def _bounded_to_corridor(reachable_sets, rings, segs, seg_mask):
+    """``geo.bound_convex_to_corridor`` of reachable sets [V, Hp, K, 2]
+    against each vehicle's corridor (rings [V, L, R, 2], boundary segments
+    [V, S, 2, 2], mask [V, S]), CLIP_ROWS vehicles a pass: the clip works
+    vehicle by vehicle, so the passes give what one pass would."""
+    parts = [geo.bound_convex_to_corridor(rs, r[:, None], s[:, None],
+                                          m[:, None])
+             for rs, r, s, m in zip(*(x.split(CLIP_ROWS) for x in (
+                 reachable_sets, rings, segs, seg_mask)))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 class StepState(NamedTuple):
-    """Carry of the receding-horizon loop (one scenario); ``prev_*`` hold
-    the previous step's chosen plan (fallback, PrioritizedController.m:
-    678-718)."""
+    """Carry of the receding-horizon loop; ``prev_*`` hold the previous
+    step's chosen plan (fallback, PrioritizedController.m:678-718). The
+    shapes are one scenario's; the step takes and returns them with a
+    leading scenario dim B ([B, N, 3], ...)."""
 
     pose: torch.Tensor         # [N, 3]
     trim: torch.Tensor         # [N] i64
@@ -86,7 +115,8 @@ class StepState(NamedTuple):
 
 
 class StepInfo(NamedTuple):
-    """Per-step record (the ControlResultsInfo / IterationData capability)."""
+    """Per-step record (the ControlResultsInfo / IterationData capability),
+    one scenario's shapes; the step's carry a leading scenario dim B."""
 
     poses: torch.Tensor          # [N, Hp, 3]
     trims: torch.Tensor          # [N, Hp]
@@ -118,15 +148,24 @@ def initial_state(scenario: ScenarioTensors, hp: int) -> StepState:
     )
 
 
-def check_main_path(cfg: Config) -> None:
+VOTING = (PriorityStrategies.optimal_priority,
+          PriorityStrategies.explorative_priority)
+
+
+def check_main_path(cfg: Config, n_scenarios: int = 1) -> None:
     """Raise NotImplementedError for anything the port does not run yet:
-    human-driven vehicles, centralized planning and the parallel
-    computation mode."""
+    human-driven vehicles, centralized planning, the parallel computation
+    mode and, in a batch of more than one scenario, the voting modes
+    (their candidate sets are ragged across scenarios: optimal voting
+    votes per coupling subgraph, explorative voting shifts per
+    computation level)."""
     refused = [
         (not cfg.is_prioritized, "centralized planning"),
         (cfg.computation_mode != ComputationMode.sequential,
          f"computation_mode={cfg.computation_mode.value}"),
         (cfg.manual_control_config.is_active, "human-driven vehicles"),
+        (n_scenarios > 1 and cfg.priority in VOTING,
+         f"priority={cfg.priority.value} over {n_scenarios} scenarios"),
     ]
     missing = [what for no, what in refused if no]
     if missing:
@@ -205,21 +244,22 @@ def _reachable_sets_at_pose(mpa: MpaTensors, pose, trim):
 
 def _couple(cfg: Config, reachable_sets, poses, max_mpa_speed,
             pred_lanelets=None, adjacency_lanelets=None):
-    """Adjacency [N, N] bool from the configured coupling strategy.
+    """Adjacency [..., N, N] bool from the configured coupling strategy
+    (leading dims: scenarios; vehicles pair only within their own).
 
-    ``pred_lanelets`` [N, Lp] (1-based ids, 0 = none) and
+    ``pred_lanelets`` [..., N, Lp] (1-based ids, 0 = none) and
     ``adjacency_lanelets`` [L+1, L+1] enable DistanceCoupler.m:28-31's
     lanelet-adjacency prefilter on road scenarios.
     """
-    n = reachable_sets.shape[0]
+    *lead, n = reachable_sets.shape[:-3]
     dev = reachable_sets.device
     if cfg.coupling == CouplingStrategies.no_coupling:
-        return torch.zeros((n, n), dtype=torch.bool, device=dev)
+        return torch.zeros((*lead, n, n), dtype=torch.bool, device=dev)
     if cfg.coupling == CouplingStrategies.full_coupling:
-        return ~torch.eye(n, dtype=torch.bool, device=dev)
+        return ~torch.eye(n, dtype=torch.bool, device=dev).expand(*lead, n, n)
     if cfg.coupling == CouplingStrategies.distance_coupling:
         # DistanceCoupler.m: coupled iff distance <= 2 * v_max * dt * Hp
-        d = graph_ops.pairwise_distances(poses[:, :2])
+        d = graph_ops.pairwise_distances(poses[..., :2])
         max_distance = 2.0 * max_mpa_speed * cfg.dt_seconds * cfg.Hp
         coupled = (d <= max_distance) & ~torch.eye(n, dtype=torch.bool,
                                                     device=dev)
@@ -227,19 +267,22 @@ def _couple(cfg: Config, reachable_sets, poses, max_mpa_speed,
             # is_any_lanelet_adjacent (DistanceCoupler.m:56-63): some pair
             # of (current + predicted) lanelets is adjacent; row and column
             # 0 of the matrix are all False, so padded id 0 is inert
-            pair_adj = adjacency_lanelets[pred_lanelets[:, None, :, None],
-                                          pred_lanelets[None, :, None, :]]
+            pair_adj = adjacency_lanelets[
+                pred_lanelets[..., :, None, :, None],
+                pred_lanelets[..., None, :, None, :]]
             coupled &= pair_adj.any(dim=-1).any(dim=-1)
         return coupled
     # reachable_set_coupling: overlap area of the last-step reachable sets
     # above the threshold (ReachableSetCoupler.m:39-48); each unordered
-    # pair is computed once and mirrored, so the adjacency is symmetric
-    last = reachable_sets[:, -1]                             # [N, K, 2]
+    # pair of a scenario is computed once and mirrored, so the adjacency
+    # is symmetric
+    last = reachable_sets[..., -1, :, :]                     # [..., N, K, 2]
     iu, ju = torch.triu_indices(n, n, 1, device=dev)
-    pair_area = geo.convex_intersection_area_clip(last[iu], last[ju])
-    adj = torch.zeros((n, n), dtype=torch.bool, device=dev)
-    adj[iu, ju] = pair_area > COUPLING_AREA_THRESHOLD
-    return adj | adj.T
+    pair_area = geo.convex_intersection_area_clip(last[..., iu, :, :],
+                                                  last[..., ju, :, :])
+    adj = torch.zeros((*lead, n, n), dtype=torch.bool, device=dev)
+    adj[..., iu, ju] = pair_area > COUPLING_AREA_THRESHOLD
+    return adj | adj.mT
 
 
 def _calculate_yaw(points):
@@ -258,36 +301,38 @@ def _fca_priorities(cfg: Config, adjacency, ref_points):
     """Future-Collision-Assessment priorities (FcaPrioritizer.m:24-93):
     vehicle rectangles (with offset) along each reference, yawed along it;
     a coupled pair's collisions are counted step by step with SAT; more
-    collisions plan earlier, ties by index."""
-    yaws = _calculate_yaw(ref_points)                        # [N, Hp]
+    collisions plan earlier, ties by index. Leading dims: scenarios."""
+    yaws = _calculate_yaw(ref_points)                        # [..., N, Hp]
     shapes = geo.transformed_rectangle(
         ref_points[..., 0], ref_points[..., 1], yaws,
         VEHICLE_LENGTH + 2 * cfg.offset, VEHICLE_WIDTH + 2 * cfg.offset,
-    )                                                        # [N, Hp, 4, 2]
+    )                                                    # [..., N, Hp, 4, 2]
     # SAT in the XLA form, as the reference's Precision.HIGHEST projection
     # matmul compiles on XLA:CPU; touching counts as a collision
-    hits = ~_sat_separates_batch(shapes[:, None], shapes[None, :])  # [N,N,Hp]
+    hits = ~_sat_separates_batch(shapes[..., :, None, :, :, :],
+                                 shapes[..., None, :, :, :, :])  # [..,N,N,Hp]
     counts = torch.where(adjacency, hits.sum(dim=-1), 0)
-    order = torch.sort(-counts.sum(dim=1), stable=True).indices
+    order = torch.sort(-counts.sum(dim=-1), dim=-1, stable=True).indices
     return graph_ops.ranks_of(order)
 
 
 def _prioritize(cfg: Config, adjacency, ref_points, k: int):
-    """Priorities and the directed coupling they induce (Prioritizer.m) at
-    step ``k``; optimal and explorative modes start from constant
-    priorities (Prioritizer.m:26-29)."""
-    n = adjacency.shape[0]
+    """Priorities [..., N] and the directed coupling they induce
+    (Prioritizer.m) at step ``k`` (leading dims: scenarios; one random
+    draw a step serves them all); optimal and explorative modes start
+    from constant priorities (Prioritizer.m:26-29)."""
+    n = adjacency.shape[-1]
+    lead = adjacency.shape[:-1]
     if cfg.priority == PriorityStrategies.random_priority:
-        priorities = graph_ops.random_priorities(n, k, cfg.seed,
-                                                 adjacency.device)
+        priorities = graph_ops.random_priorities(
+            n, k, cfg.seed, adjacency.device).expand(lead)
     elif cfg.priority == PriorityStrategies.FCA_priority:
         priorities = _fca_priorities(cfg, adjacency, ref_points)
     elif cfg.priority == PriorityStrategies.coloring_priority:
         priorities = graph_ops.coloring_priorities(adjacency)
-    elif cfg.priority in (PriorityStrategies.constant_priority,
-                          PriorityStrategies.optimal_priority,
-                          PriorityStrategies.explorative_priority):
-        priorities = graph_ops.constant_priorities(n, adjacency.device)
+    elif cfg.priority in (PriorityStrategies.constant_priority, *VOTING):
+        priorities = graph_ops.constant_priorities(
+            n, adjacency.device).expand(lead)
     else:
         raise NotImplementedError(f"priority strategy {cfg.priority.value}")
     directed = graph_ops.directed_coupling_from_priorities(adjacency,
@@ -298,13 +343,13 @@ def _prioritize(cfg: Config, adjacency, ref_points, k: int):
 def _weigh(cfg: Config, directed, poses, k: int, max_mpa_speed):
     """Constant (ConstantWeigher.m), random (RandomWeigher.m, seeded by
     step ``k``) or distance (DistanceWeigher.m) weights of the directed
-    coupling."""
+    coupling [..., N, N]."""
     if cfg.weight == WeightStrategies.constant_weight:
         return graph_ops.constant_weights(directed)
     if cfg.weight == WeightStrategies.random_weight:
         return graph_ops.random_weights(directed, k, cfg.seed)
     if cfg.weight == WeightStrategies.distance_weight:
-        return graph_ops.distance_weights(directed, poses[:, :2],
+        return graph_ops.distance_weights(directed, poses[..., :2],
                                           max_mpa_speed, cfg.dt_seconds,
                                           cfg.Hp)
     raise NotImplementedError(f"weight strategy {cfg.weight.value}")
@@ -545,9 +590,15 @@ def compact_schedule(levels: torch.Tensor, c_chunk: int,
     ``sequential``). Runs on the host: levels [N] and sequential [N, N].
     Returns (schedule [N, c_chunk] i64, n_chunks int).
     """
-    n = levels.shape[0]
-    lv = levels.tolist()
-    seq = sequential.tolist()
+    schedule, n_chunks = _compact_rows(levels.tolist(), sequential.tolist(),
+                                       c_chunk)
+    return torch.tensor(schedule, dtype=torch.int64), n_chunks
+
+
+def _compact_rows(lv: list, seq: list, c_chunk: int):
+    """``compact_schedule`` of levels ``lv`` [N] and sequential ``seq``
+    [N][N] given as lists: (schedule rows, n_chunks)."""
+    n = len(lv)
     order = sorted(range(n), key=lambda i: (lv[i], i))
     chunk_of = [-1] * n
     slots_used = [0] * n
@@ -561,7 +612,32 @@ def compact_schedule(levels: torch.Tensor, c_chunk: int,
         chunk_of[v] = t
         schedule[t][slots_used[t]] = v
         slots_used[t] += 1
-    return torch.tensor(schedule, dtype=torch.int64), max(chunk_of) + 1
+    return schedule, max(chunk_of) + 1
+
+
+def merged_schedule(levels: torch.Tensor, c_chunk: int,
+                    sequential: torch.Tensor) -> list[torch.Tensor]:
+    """The merged chunk loop of a batch of scenarios: each scenario's own
+    ``compact_schedule`` (levels [B, N] and sequential [B, N, N], on the
+    host), merged chunk t holding, scenario by scenario, the vehicles of
+    each scenario's chunk t. A scenario past its last chunk adds none and
+    padded slots (-1) are dropped, so the loop runs max_b n_chunks(b)
+    times and plans every vehicle of every scenario once, after its own
+    scenario's sequential predecessors. Returns the merged chunks as
+    [3, V] i64 host tensors: each planning row's scenario b, vehicle v
+    and flattened row b * N + v."""
+    n = levels.shape[-1]
+    own = [_compact_rows(lv, seq, c_chunk)
+           for lv, seq in zip(levels.tolist(), sequential.tolist())]
+    chunks = []
+    for t in range(max(count for _, count in own)):
+        rows = [(b, v) for b, (schedule, count) in enumerate(own)
+                if t < count for v in schedule[t] if v >= 0]
+        chunks.append(torch.tensor([[b for b, _ in rows],
+                                    [v for _, v in rows],
+                                    [b * n + v for b, v in rows]],
+                                   dtype=torch.int64))
+    return chunks
 
 
 # ---------------------------------------------------------------------------
@@ -577,10 +653,28 @@ def _del_first_rpt_last(arr: torch.Tensor, dim: int) -> torch.Tensor:
                      dim=dim)
 
 
+# the per-vehicle tensors of a scenario, which the traffic info reads
+_PER_VEHICLE = ("reference_paths", "path_cumlen", "is_loop",
+                "reference_speed", "segment_lanelet")
+
+
+def _tile_scenario(scenario: ScenarioTensors, b: int) -> ScenarioTensors:
+    """``scenario`` with its per-vehicle tensors repeated for ``b``
+    scenarios: row b * N + v holds vehicle v's."""
+    return scenario._replace(**{
+        name: x.repeat(b, *(1,) * (x.dim() - 1))
+        for name in _PER_VEHICLE
+        if (x := getattr(scenario, name)) is not None})
+
+
 def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                           scenario: ScenarioTensors):
     """Build ``step(state, k) -> (state, info)`` for the prioritized
-    single-program path (PrioritizedSequentialController semantics)."""
+    single-program path (PrioritizedSequentialController semantics) over
+    a batch of scenarios: ``state`` carries a leading scenario dim B
+    (``parallel.sharded.batched_initial_state``) and so does ``info``.
+    Each of the B scenarios runs ``scenario`` from its own state, as the
+    reference's ``jax.vmap`` of its step; B is read from the state."""
     check_main_path(cfg)
     n = scenario.n_vehicles
     hp = mpa.Hp
@@ -605,38 +699,55 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     if static is not None:
         static_polys = static[:, None].expand(-1, hp, VO, 2)
         static_mask = scenario.static_obstacle_mask[None].expand(n, -1)
+    tiles = {}                    # B -> the scenario's vehicles B times
 
     def step(state: StepState, k: int):
-        # ---- local traffic info ------------------------------------------
+        bsz = state.pose.shape[0]
+        check_main_path(cfg, bsz)
+        if bsz not in tiles:
+            tiles[bsz] = _tile_scenario(scenario, bsz)
+        sc_rows = tiles[bsz]
+        rows = bsz * n
+        pose_r = state.pose.reshape(rows, 3)
+        trim_r = state.trim.reshape(rows)
+
+        # ---- local traffic info, on the B*N vehicles flattened ----------
         ref_points, v_ref, seg_idx, proj_seg = _reference_trajectory(
-            mpa, scenario, state.pose, state.trim, dt
+            mpa, sc_rows, pose_r, trim_r, dt
         )
-        reachable_sets = _reachable_sets_at_pose(mpa, state.pose,
-                                                 state.trim)  # [N, Hp, K, 2]
+        reachable_sets = _reachable_sets_at_pose(mpa, pose_r,
+                                                 trim_r)  # [B*N, Hp, K, 2]
         seg_pre = pred_lanelets = None
         if road is not None:
             # predicted lanelets -> boundary segments and corridor rings
             # (get_predicted_lanelets.m + get_lanelets_boundary.m)
-            lane_of = scenario.segment_lanelet               # [N, P-1]
+            lane_of = sc_rows.segment_lanelet                # [B*N, P-1]
             ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
-                             lane_of.gather(1, seg_idx)], dim=1)  # [N, Hp+1]
+                             lane_of.gather(1, seg_idx)], dim=1)  # [.., Hp+1]
             pred_lanelets = _unique_padded(ids, _n_predicted_lanelets(hp))
             bnd_segs = road.boundary_segments[pred_lanelets].reshape(
-                n, -1, 2, 2)
-            bnd_mask = road.boundary_seg_mask[pred_lanelets].reshape(n, -1)
-            corridor_rings = road.corridor_rings[pred_lanelets]  # [N,L,R,2]
+                rows, -1, 2, 2)
+            bnd_mask = road.boundary_seg_mask[pred_lanelets].reshape(rows, -1)
+            corridor_rings = road.corridor_rings[pred_lanelets]  # [.,L,R,2]
             # segment geometry is layer- and chunk-invariant: one bundle
-            # per step
+            # per step, its rows flattened as the planning rows index them
             seg_pre = precompute_segments(bnd_segs, bnd_mask)
             # reachable sets bounded by the drivable corridor before they
             # feed coupling and avoidance (bound_reachable_sets.m:1-50)
-            reachable_sets = geo.bound_convex_to_corridor(
-                reachable_sets, corridor_rings[:, None], bnd_segs[:, None],
-                bnd_mask[:, None],
-            )
+            reachable_sets = _bounded_to_corridor(
+                reachable_sets, corridor_rings, bnd_segs, bnd_mask)
 
-        occupied_offset = _occupied_area(state.pose, cfg.offset)
-        occupied_no_offset = _occupied_area(state.pose, 0.0)
+        occupied_offset = _occupied_area(pose_r, cfg.offset)
+        occupied_no_offset = _occupied_area(pose_r, 0.0)
+
+        def per_scenario(x):
+            """[B*N, ...] -> [B, N, ...]."""
+            return None if x is None else x.reshape(bsz, n, *x.shape[1:])
+
+        (ref_points, v_ref, reachable_sets, pred_lanelets, occupied_offset,
+         occupied_no_offset) = map(per_scenario, (
+             ref_points, v_ref, reachable_sets, pred_lanelets,
+             occupied_offset, occupied_no_offset))
 
         # ---- traffic exchange, coupling graph and priorities -------------
         (pose_g, trim_g, rs_g, ref_points_g, occupied_offset_g,
@@ -648,10 +759,11 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             cfg, rs_g, pose_g, max_mpa_speed, pred_lanelets=pred_lanelets_g,
             adjacency_lanelets=(road.adjacency_lanelets
                                 if road is not None else None),
-        )
+        )                                                    # [B, N, N]
         if sampled:
             # the rollouts' Gumbel noise depends on (seed, step, vehicle)
-            # only: one draw a step serves every solve of the step
+            # only: one draw a step serves every solve and every scenario
+            # of the step
             noise = rollout_noise(cfg.seed, k, n, hp, cfg.mcts_n_rollouts,
                                   mpa.n_trims, dev)
         if cfg.priority == PriorityStrategies.explorative_priority:
@@ -664,104 +776,121 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             priorities, directed = _prioritize(cfg, adjacency, ref_points_g,
                                                k)
 
-        # ---- obstacle families (global, shared across vehicles) ----------
+        # ---- obstacle families (per scenario, shared by its vehicles) ----
         # 0: this step's already-planned predicted areas; 1: parallel-
         # coupling avoidance by reachable sets or, without
         # isDealPredictionInconsistency, the previous plans shifted by a
         # step; 2: the successor constraint (standstill areas or previous
         # plans; none: no family); then the static obstacles. Masks are
-        # [N planning, N obstacle] per family; a family the configuration
-        # never uses is not in the tensors at all.
+        # [B, N planning, N obstacle] per family; a family the
+        # configuration never uses is not in the tensors at all.
         if (not use_reachability or successor_mode
                 == ConstraintFromSuccessor.area_of_previous_trajectory):
-            prev_shifted = _del_first_rpt_last(prev_shapes_g, 1)
+            prev_shifted = _del_first_rpt_last(prev_shapes_g, 2)
         parallel_polys = (pad_polys_to_vo(rs_g) if use_reachability
-                          else prev_shifted)             # [N, Hp, VO, 2]
+                          else prev_shifted)          # [B, N, Hp, VO, 2]
 
         def solve(directed_p):
-            """One prioritized solve for a directed coupling: weigh ->
-            cut -> levels -> obstacle families -> compact chunk loop.
-            Returns (planned, planned_shapes [N, Hp, VO, 2], sequential,
-            levels); ``planned.shapes`` are the same padded areas."""
+            """One prioritized solve of every scenario for its directed
+            coupling [B, N, N]: weigh -> cut -> levels -> obstacle
+            families -> merged compact chunk loop. Returns (planned,
+            planned_shapes [B, N, Hp, VO, 2], sequential, levels);
+            ``planned.shapes`` are the same padded areas."""
             weighted = _weigh(cfg, directed_p, pose_g, k, max_mpa_speed)
             sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
             levels, _ = graph_ops.kahn_levels(sequential)
-            seq_pred = sequential.T & not_self
-            par_pred = directed_p.T & ~sequential.T & not_self
+            seq_t = sequential.mT
+            seq_pred = seq_t & not_self
+            par_pred = directed_p.mT & ~seq_t & not_self
             if not use_reachability:
-                par_pred = par_pred & prev_valid_g[None, :]
+                par_pred = par_pred & prev_valid_g[:, None, :]
             masks, polys = [seq_pred, par_pred], [parallel_polys]
             if successor_mode == ConstraintFromSuccessor.area_of_standstill:
                 masks.append(directed_p & not_self & (
-                    mpa.trim_speed[trim_g] < STANDSTILL_SPEED)[None])
-                polys.append(pad_polys_to_vo(occupied_offset_g)[:, None]
-                             .expand(n, hp, VO, 2))
+                    mpa.trim_speed[trim_g] < STANDSTILL_SPEED)[:, None, :])
+                polys.append(pad_polys_to_vo(occupied_offset_g)[:, :, None]
+                             .expand(bsz, n, hp, VO, 2))
             elif (successor_mode
                   == ConstraintFromSuccessor.area_of_previous_trajectory):
-                masks.append(directed_p & prev_valid_g[None, :] & not_self)
+                masks.append(directed_p & prev_valid_g[:, None, :]
+                             & not_self)
                 polys.append(prev_shifted)
             if static is not None:
-                masks.append(static_mask)
-                polys.append(static_polys)
-            obs_mask = comm.local_slice(torch.cat(masks, dim=1))
-            n_obs = obs_mask.shape[1]
+                masks.append(static_mask.expand(bsz, n, -1))
+                polys.append(static_polys.expand(bsz, *static_polys.shape))
+            obs_mask = comm.local_slice(torch.cat(masks, dim=-1))
+            n_obs = obs_mask.shape[-1]                   # [B, N, n_obs]
 
-            # ---- compact chunk loop: every vehicle planned once ----------
-            # the schedule needs levels on the host: one sync a solve
-            schedule, n_chunks = compact_schedule(levels.cpu(), c_chunk,
-                                                  sequential.cpu())
+            # ---- merged compact chunk loop: every vehicle planned once ---
+            # the schedule needs levels on the host: one sync a solve for
+            # the whole batch
+            chunks = merged_schedule(levels.cpu(), c_chunk, sequential.cpu())
             # the plans; their swept areas padded to VO vertices, as the
             # obstacle family they become
             planned = PlanResult(
-                trims=torch.zeros((n, hp), dtype=torch.int64, device=dev),
-                poses=torch.zeros((n, hp, 3), device=dev),
-                shapes=torch.zeros((n, hp, VO, 2), device=dev),
-                cost=torch.zeros((n,), device=dev),
-                is_exhausted=torch.zeros((n,), dtype=torch.bool, device=dev),
-                n_expanded=torch.zeros((n,), dtype=torch.int64, device=dev),
+                trims=torch.zeros((bsz, n, hp), dtype=torch.int64,
+                                  device=dev),
+                poses=torch.zeros((bsz, n, hp, 3), device=dev),
+                shapes=torch.zeros((bsz, n, hp, VO, 2), device=dev),
+                cost=torch.zeros((bsz, n), device=dev),
+                is_exhausted=torch.zeros((bsz, n), dtype=torch.bool,
+                                         device=dev),
+                n_expanded=torch.zeros((bsz, n), dtype=torch.int64,
+                                       device=dev),
             )
-            for row in schedule[:n_chunks].tolist():
-                # padded slots (-1) are not planned at all: no kernel work
-                idx = torch.tensor([i for i in row if i >= 0], device=dev)
-                nv = idx.shape[0]
-                obs_polys = torch.cat([planned.shapes, *polys])
+            for chunk in chunks:
+                # a planning row is a (scenario, vehicle) pair; padded
+                # slots are not planned at all: no kernel work
+                bi, vi, ri = chunk.to(dev)               # one copy a chunk
+                nv = bi.shape[0]
+                # each row's obstacles are its own scenario's families
+                obs_polys = torch.cat([planned.shapes, *polys], dim=1)[bi]
                 obstacles = Obstacles(
-                    polys=obs_polys.expand(nv, *obs_polys.shape),
-                    mask=obs_mask[idx][:, :, None].expand(nv, n_obs, hp),
+                    polys=obs_polys,
+                    mask=obs_mask[bi, vi][:, :, None].expand(nv, n_obs, hp),
                 )
-                args = (mpa, state.pose[idx], state.trim[idx], ref_points[idx],
-                        v_ref[idx], obstacles, dt)
+                args = (mpa, state.pose[bi, vi], state.trim[bi, vi],
+                        ref_points[bi, vi], v_ref[bi, vi], obstacles, dt)
                 kw = dict(segments_pre=(None if seg_pre is None else
-                                        SegmentsPre(*(x[idx]
+                                        SegmentsPre(*(x[ri]
                                                       for x in seg_pre))),
                           non_convex=non_convex)
                 if sampled:
                     result = plan_trajectory_sampled(
-                        *args, noise[idx], temperature=cfg.mcts_temperature,
+                        *args, noise[vi], temperature=cfg.mcts_temperature,
                         **kw)
                 else:
                     result = plan_trajectory(*args, cfg.beam_width, **kw)
                 result = result._replace(
                     shapes=pad_polys_to_vo(result.shapes))
                 for field, value in zip(planned, result):
-                    field[idx] = value
+                    field[bi, vi] = value
             return planned, planned.shapes, sequential, levels
 
-        if cfg.priority == PriorityStrategies.optimal_priority:
-            (planned, planned_shapes, sequential, levels, priorities,
-             directed, perm_chosen) = _solve_optimal(cfg, comm, solve,
-                                                     adjacency)
-        elif cfg.priority == PriorityStrategies.explorative_priority:
-            weighted0 = _weigh(cfg, directed, pose_g, k, max_mpa_speed)
-            sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
-            levels0, _ = graph_ops.kahn_levels(sequential0)
-            (planned, planned_shapes, sequential, levels, priorities,
-             directed, perm_chosen) = _solve_explorative(
-                cfg, comm, solve, directed, sequential0, levels0,
-                max_num_cls)
+        if cfg.priority in VOTING:
+            # one scenario (check_main_path refuses voting in a larger
+            # batch): the vote runs on its [N, N] graph
+            def solve_one(directed_p):
+                planned_p, shapes_p, seq_p, levels_p = solve(directed_p[None])
+                return (PlanResult(*(x[0] for x in planned_p)), shapes_p[0],
+                        seq_p[0], levels_p[0])
+
+            if cfg.priority == PriorityStrategies.optimal_priority:
+                voted = _solve_optimal(cfg, comm, solve_one, adjacency[0])
+            else:
+                weighted0 = _weigh(cfg, directed, pose_g, k, max_mpa_speed)
+                sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
+                levels0, _ = graph_ops.kahn_levels(sequential0)
+                voted = _solve_explorative(cfg, comm, solve_one, directed[0],
+                                           sequential0[0], levels0[0],
+                                           max_num_cls)
+            planned = PlanResult(*(x[None] for x in voted[0]))
+            (planned_shapes, sequential, levels, priorities, directed,
+             perm_chosen) = (x[None] for x in voted[1:])
         else:
             planned, planned_shapes, sequential, levels = solve(directed)
-            perm_chosen = torch.zeros((n,), dtype=torch.int64, device=dev)
+            perm_chosen = torch.zeros((bsz, n), dtype=torch.int64,
+                                      device=dev)
         is_exhausted = planned.is_exhausted
 
         # ---- exhaustion handling (PrioritizedController.m:568-621) -------
@@ -771,10 +900,10 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             stay_still_ok = torch.zeros_like(is_exhausted)
         else:
             stay_still_ok = is_exhausted & (mpa.trim_speed[state.trim] == 0.0)
-        ss_poses = state.pose[:, None, :].expand(n, hp, 3)
-        ss_trims = state.trim[:, None].expand(n, hp)
-        ss_shapes = pad_polys_to_vo(occupied_no_offset)[:, None].expand(
-            n, hp, VO, 2)
+        ss_poses = state.pose[:, :, None, :].expand(bsz, n, hp, 3)
+        ss_trims = state.trim[:, :, None].expand(bsz, n, hp)
+        ss_shapes = pad_polys_to_vo(occupied_no_offset)[:, :, None].expand(
+            bsz, n, hp, VO, 2)
         ss_cost = _tracking_cost(ss_poses, ref_points)
 
         # fallback propagation over the coupling graph
@@ -785,18 +914,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         # fallback plan: previous plan shifted by one, last repeated
         # (plan_fallback, :678-718); without a previous plan: stand still
         use_prev = state.prev_valid
-        fb_poses = torch.where(use_prev[:, None, None],
-                               _del_first_rpt_last(state.prev_poses, 1),
+        fb_poses = torch.where(use_prev[..., None, None],
+                               _del_first_rpt_last(state.prev_poses, 2),
                                ss_poses)
-        fb_trims = torch.where(use_prev[:, None],
-                               _del_first_rpt_last(state.prev_trims, 1),
+        fb_trims = torch.where(use_prev[..., None],
+                               _del_first_rpt_last(state.prev_trims, 2),
                                ss_trims)
-        fb_shapes = torch.where(use_prev[:, None, None, None],
-                                _del_first_rpt_last(state.prev_shapes, 1),
+        fb_shapes = torch.where(use_prev[..., None, None, None],
+                                _del_first_rpt_last(state.prev_shapes, 2),
                                 ss_shapes)
         fb_cost = torch.where(
             use_prev,
-            _tracking_cost(_del_first_rpt_last(state.prev_poses, 1),
+            _tracking_cost(_del_first_rpt_last(state.prev_poses, 2),
                            ref_points),
             ss_cost,
         )
@@ -804,7 +933,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         use_ss = stay_still_ok & ~fallbacks
 
         def choose(planned_v, ss_v, fb_v):
-            shape = (n,) + (1,) * (planned_v.dim() - 1)
+            shape = (bsz, n) + (1,) * (planned_v.dim() - 2)
             return torch.where(
                 fallbacks.reshape(shape), fb_v,
                 torch.where(use_ss.reshape(shape), ss_v, planned_v),
@@ -817,12 +946,12 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
 
         # ---- apply (Simulation.apply, plant/Simulation.m:86-117) ----------
         new_state = StepState(
-            pose=final_poses[:, 0],
-            trim=final_trims[:, 0],
+            pose=final_poses[:, :, 0],
+            trim=final_trims[:, :, 0],
             prev_poses=final_poses,
             prev_trims=final_trims,
             prev_shapes=final_shapes,
-            prev_valid=torch.ones((n,), dtype=torch.bool, device=dev),
+            prev_valid=torch.ones((bsz, n), dtype=torch.bool, device=dev),
             priorities_prev=comm.local_slice(priorities),
         )
         info = StepInfo(
@@ -847,17 +976,19 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
 
 
 def _tracking_cost(poses, ref_points):
-    """Sum over Hp of the squared distance to the reference: [N]."""
+    """Sum over Hp of the squared distance to the reference: [..., N]."""
     d = poses[..., :2] - ref_points
     return torch.sum(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1], dim=-1)
 
 
 def make_run(cfg: Config):
-    """Receding-horizon experiment (HighLevelController.m:334-373):
-    ``run(state0, mpa, scenario, step_seconds=None) -> (final_state,
-    infos)`` with infos stacked over the k_end steps. When a list is
-    given as ``step_seconds``, each step's wall-clock time (device work
-    included) is appended to it."""
+    """Receding-horizon experiment (HighLevelController.m:334-373) of a
+    batch of scenarios: ``run(states0, mpa, scenario, step_seconds=None)
+    -> (final_states, infos)``, the states with a leading scenario dim B
+    and the infos [B, k_end, ...], as the reference's ``jax.vmap`` of its
+    run returns them. When a list is given as ``step_seconds``, each
+    batched step's wall-clock time (device work included) is appended to
+    it."""
 
     def run(state: StepState, mpa: MpaTensors, scenario: ScenarioTensors,
             step_seconds: list | None = None):
@@ -872,7 +1003,7 @@ def make_run(cfg: Config):
             if step_seconds is not None:
                 step_seconds.append(time.perf_counter() - t0)
             infos.append(info)
-        stacked = StepInfo(*(torch.stack(f) for f in zip(*infos)))
+        stacked = StepInfo(*(torch.stack(f, dim=1) for f in zip(*infos)))
         return state, stacked
 
     return run

@@ -4,6 +4,9 @@ Torch twin of pdmpc_tpu/experiment.py (main.m + HlcFactory.m): builds the
 MPA and scenario, moves their tensors to the device, runs the
 receding-horizon loop and returns an :class:`ExperimentResult` whose
 ``infos`` have the reference's fields, stacked over steps as numpy arrays.
+``run_experiment`` runs one scenario; ``run_experiment_batch`` plans a
+batch of scenario rollouts in one merged chunk loop a step, each entry
+equal to its run alone.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ from pdmpc_torch import resolve_device
 from pdmpc_torch.config import Config, ScenarioType
 from pdmpc_torch.controller import (
     StepInfo,
+    StepState,
+    check_main_path,
     infos_to_numpy,
-    initial_state,
     make_run,
 )
 from pdmpc_torch.models.mpa import Mpa, build_mpa
+from pdmpc_torch.parallel.sharded import batched_initial_state
 from pdmpc_torch.scenarios.circle import create_circle_scenario
 from pdmpc_torch.scenarios.commonroad import create_commonroad_scenario
 from pdmpc_torch.scenarios.mixed import create_mixed_scenario
@@ -43,7 +48,8 @@ def create_scenario(options: Config, mpa: Mpa) -> Scenario:
 @dataclass
 class ExperimentResult:
     """Result object (hlc/controller/common/ExperimentResult.m): options,
-    per-step infos [k_end, ...] (numpy), final state, timings."""
+    per-step infos [k_end, ...] (numpy; [B, k_end, ...] for a batch of B
+    scenarios), final state, timings."""
 
     options: Config
     infos: StepInfo
@@ -52,7 +58,7 @@ class ExperimentResult:
 
     @property
     def n_steps(self) -> int:
-        return int(self.infos.cost.shape[0])
+        return int(self.infos.cost.shape[-2])
 
     @property
     def n_vehicles(self) -> int:
@@ -65,7 +71,38 @@ class ExperimentResult:
 
 def run_experiment(options: Config, device=None) -> ExperimentResult:
     """Run one experiment end to end (main.m sequential mode) on ``device``
-    (default CUDA; raises if CUDA is absent)."""
+    (default CUDA; raises if CUDA is absent): a batch of one scenario, its
+    records without the scenario dim."""
+    res = run_batch_from(options, identical_starts(1), device)
+    res.infos = StepInfo(*(x[0] for x in res.infos))
+    res.final_state = type(res.final_state)(*(x[0] for x in res.final_state))
+    res.timings["steps_per_second"] = (res.options.k_end
+                                       / res.timings["control_loop"])
+    return res
+
+
+def run_experiment_batch(options: Config, n_scenarios: int | None = None,
+                         device=None) -> ExperimentResult:
+    """Run a batch of scenario rollouts in one merged chunk loop a step
+    (pdmpc_tpu experiment.run_experiment_batch, a vmap over scenarios):
+    ``n_scenarios`` (default ``options.n_scenarios``) identical starts.
+    Infos [B, k_end, ...], final state [B, N, ...]; timings
+    ``control_loop``, ``vehicle_solves_per_second`` and the batched
+    steps' ``step_seconds``."""
+    b = n_scenarios if n_scenarios is not None else options.n_scenarios
+    return run_batch_from(options, identical_starts(b), device)
+
+
+def identical_starts(n_scenarios: int):
+    """``run_batch_from``'s initial states: ``n_scenarios`` copies of the
+    scenario's own."""
+    return lambda sc_t, cfg: batched_initial_state(sc_t, cfg.Hp, n_scenarios)
+
+
+def run_batch_from(options: Config, states0, device=None) -> ExperimentResult:
+    """Build the MPA and scenario of ``options`` on ``device`` and run the
+    batch whose initial states ``states0(scenario_tensors, options)``
+    gives (options validated)."""
     device = resolve_device(device)
     options = options.validate()
     timings: dict[str, Any] = {}
@@ -75,22 +112,25 @@ def run_experiment(options: Config, device=None) -> ExperimentResult:
     scenario = create_scenario(options, mpa)
     mpa_t = mpa.to_tensors_for(options, device)
     sc_t = scenario.to_tensors(device)
+    state0 = states0(sc_t, options)
+    check_main_path(options, state0.pose.shape[0])
     timings["hlc_init_all"] = time.perf_counter() - t0
 
     run = make_run(options)
     step_seconds: list[float] = []
     t0 = time.perf_counter()
-    final_state, infos = run(initial_state(sc_t, options.Hp), mpa_t, sc_t,
-                             step_seconds)
+    final_state, infos = run(state0, mpa_t, sc_t, step_seconds)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     timings["control_loop"] = time.perf_counter() - t0
-    timings["steps_per_second"] = options.k_end / timings["control_loop"]
+    timings["n_scenarios"] = b = state0.pose.shape[0]
+    timings["vehicle_solves_per_second"] = (
+        b * options.amount * options.k_end / timings["control_loop"])
     timings["step_seconds"] = step_seconds
     return ExperimentResult(
         options=options,
         infos=infos_to_numpy(infos),
-        final_state=type(final_state)(*(x.cpu() for x in final_state)),
+        final_state=StepState(*(x.cpu() for x in final_state)),
         timings=timings,
     )
 

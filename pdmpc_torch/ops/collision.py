@@ -105,6 +105,9 @@ OBS_GROUP = 32
 # Obstacles per step of the plain SAT version, to bound its memory
 # (pdmpc_tpu/ops/search.py OBS_CHUNK).
 SAT_CHUNK = 8
+# the launcher puts one planning row on each gridDim.y index
+# (csrc/collision.cu resident_grid), whose limit this is
+MAX_ROWS = 65535
 # Most candidate vertices one kernel thread holds in registers.
 MAX_VA = 8
 # Most vertices of an obstacle the SAT kernel stages (a half warp each).
@@ -599,9 +602,20 @@ def _candidates(cx, cy, live):
     return dev, v, va, c
 
 
+def check_rows(v: int) -> None:
+    """Raise unless a launch's ``v`` planning rows fit the kernels' grid:
+    each row is one ``gridDim.y`` index, at most MAX_ROWS. Past it no
+    kernel launches and no plain version stands in."""
+    if v > MAX_ROWS:
+        raise ValueError(
+            f"{v} planning rows exceed the collision kernels' {MAX_ROWS} "
+            f"(one gridDim.y index a row); plan fewer scenarios at once")
+
+
 def _outline_ptrs(pre: OutlinePre, v, dev):
     """Checks of an obstacle bundle for the kernel; returns its pointers
     and (NO, VO, segments a stage round)."""
+    check_rows(v)
     no, vo = pre.ox.shape[1:]
     _check(dev, (("ox", pre.ox, (v, no, vo), torch.float32, True),
                  ("oy", pre.oy, (v, no, vo), torch.float32, True),
@@ -613,6 +627,7 @@ def _outline_ptrs(pre: OutlinePre, v, dev):
 def _segment_ptrs(pre: SegmentsPre, v, dev):
     """Checks of a segment bundle for the kernel; returns its pointers,
     S_pad and the segments a stage round."""
+    check_rows(v)
     s_pad = pre.packed.shape[-1]
     _check(dev, (("packed", pre.packed, (v, 8, s_pad), torch.float32, True),
                  ("mask", pre.mask, (v, s_pad), torch.int32, True)))
@@ -624,6 +639,7 @@ def _obstacle_ptrs(pre: ObstaclesPre, v, dev):
     """Checks of a SAT obstacle bundle for the kernel; returns its
     pointers (the bundle's field order), NO, VO and the obstacles a stage
     round."""
+    check_rows(v)
     no, vo = pre.ox.shape[1:]
     if vo > MAX_VO:
         raise ValueError(f"at most {MAX_VO} obstacle vertices, got {vo}")

@@ -3,8 +3,12 @@ components and fallback propagation.
 
 Torch twin of pdmpc_tpu/parallel/graph.py (all but the host-side
 ``unique_priorities_np``): integer/boolean matrix algebra on [N, N]
-tensors; ``fori_loop``s become Python loops. The random strategies draw
-with ``pdmpc_torch.prng``, bit-equal to the reference's ``jax.random``.
+tensors; ``fori_loop``s become Python loops. What the step calls also
+takes leading scenario dims ([B, N, N]), planning each scenario as the
+reference's vmap does. The random strategies draw with
+``pdmpc_torch.prng``, bit-equal to the reference's ``jax.random``; one
+draw a step serves every scenario, since its key depends on the seed and
+the step only.
 """
 
 from __future__ import annotations
@@ -45,16 +49,19 @@ def directed_coupling_from_priorities(adjacency: torch.Tensor,
                                       priorities: torch.Tensor
                                       ) -> torch.Tensor:
     """Edge i -> j kept iff coupled and priorities[i] < priorities[j]
-    (smaller value plans first). Reference: Prioritizer.m:64-77."""
-    return adjacency.bool() & (priorities[:, None] < priorities[None, :])
+    (smaller value plans first). Reference: Prioritizer.m:64-77. Leading
+    dims batch scenarios."""
+    return adjacency.bool() & (priorities[..., :, None]
+                               < priorities[..., None, :])
 
 
 def ranks_of(order: torch.Tensor) -> torch.Tensor:
-    """Priorities 1..N from a vehicle order: ``order[r]`` gets r + 1."""
-    ranks = torch.empty_like(order)
-    ranks[order] = torch.arange(1, order.shape[0] + 1, dtype=order.dtype,
-                                device=order.device)
-    return ranks
+    """Priorities 1..N from vehicle orders [..., N]: ``order[..., r]``
+    gets r + 1."""
+    rank = torch.arange(1, order.shape[-1] + 1, dtype=order.dtype,
+                        device=order.device)
+    return torch.empty_like(order).scatter_(-1, order,
+                                            rank.expand_as(order))
 
 
 def priorities_from_directed_coupling(directed: torch.Tensor) -> torch.Tensor:
@@ -87,15 +94,25 @@ def coloring_priorities(adjacency: torch.Tensor) -> torch.Tensor:
     """Graph-coloring priorities minimizing the number of computation
     levels (ColoringPrioritizer.m:31-151): greedy coloring in SDO/LDO
     vertex order, then the colors (levels) ordered by descending largest
-    member degree. Returns each vehicle's level rank as its priority.
+    member degree. Returns each vehicle's level rank as its priority
+    [..., N] (leading dims: scenarios, each colored on its own).
 
-    Runs on the host, a Python loop over an [N, N] matrix: once a step,
+    Runs on the host, a Python loop over each [N, N] matrix: once a step,
     and every tie breaks where the JAX function's does (``jnp.argmax`` and
     ``jnp.argmin`` take the first extremum, the stable level sort keeps
     the color order), spelled out here instead of left to a device's
-    argmax. The result goes back to the adjacency's device.
+    argmax. The batch's adjacency is copied to the host once; the result
+    goes back to the adjacency's device.
     """
-    adj = adjacency.bool().cpu().tolist()
+    n = adjacency.shape[-1]
+    batch = adjacency.bool().cpu().reshape(-1, n, n).tolist()
+    ranks = [_coloring_ranks(adj) for adj in batch]
+    return torch.tensor(ranks, dtype=torch.int64).reshape(
+        adjacency.shape[:-1]).to(adjacency.device)
+
+
+def _coloring_ranks(adj: list[list[bool]]) -> list[int]:
+    """``coloring_priorities`` of one adjacency given as nested lists."""
     n = len(adj)
     degree = [sum(row[j] for row in adj) for j in range(n)]
     color = [1 if d == 0 else 0 for d in degree]       # isolated: color 1
@@ -115,8 +132,7 @@ def coloring_priorities(adjacency: torch.Tensor) -> torch.Tensor:
                  for c in set(color)}
     order = sorted(level_deg, key=lambda c: (-level_deg[c], c))
     rank = {c: r + 1 for r, c in enumerate(order)}
-    return torch.tensor([rank[c] for c in color], dtype=torch.int64,
-                        device=adjacency.device)
+    return [rank[c] for c in color]
 
 
 def constant_weights(directed: torch.Tensor) -> torch.Tensor:
@@ -131,9 +147,10 @@ def random_weights(directed: torch.Tensor, time_step: int,
     (RandomWeigher.m; the reference's ``jax.random.uniform``, bit for bit).
 
     N x N numbers a step: drawn on the host and moved to the graph's device
-    once, as ``random_priorities``."""
+    once, as ``random_priorities``; the one draw weighs every scenario of
+    a batch ``directed`` [..., N, N]."""
     key = prng.fold_in(prng.prng_key(seed ^ 0x5EED), time_step)
-    w = prng.uniform(key, tuple(directed.shape)).to(directed.device)
+    w = prng.uniform(key, tuple(directed.shape[-2:])).to(directed.device)
     return torch.where(directed.bool(), w, torch.zeros_like(w))
 
 
@@ -148,9 +165,10 @@ def distance_weights(directed: torch.Tensor, positions: torch.Tensor,
 
 
 def pairwise_distances(positions: torch.Tensor) -> torch.Tensor:
-    """[N, N] distances between positions [N, 2], as XLA:CPU evaluates
-    ``jnp.linalg.norm`` of the differences: sqrt(fma(dy, dy, dx * dx))."""
-    diff = positions[:, None, :] - positions[None, :, :]
+    """[..., N, N] distances between positions [..., N, 2], as XLA:CPU
+    evaluates ``jnp.linalg.norm`` of the differences: sqrt(fma(dy, dy,
+    dx * dx))."""
+    diff = positions[..., :, None, :] - positions[..., None, :, :]
     return torch.sqrt(fma(diff[..., 1], diff[..., 1],
                           diff[..., 0] * diff[..., 0]))
 
@@ -163,15 +181,26 @@ def greedy_cut(weighted_directed: torch.Tensor, max_num_cls: int,
     incremental longest-path bookkeeping is pdmpc_tpu's.
 
     Edges are weight != 0 (distance weights go negative beyond d_max and
-    stay edges). Returns directed_coupling_sequential [N, N] bool.
+    stay edges). Leading dims batch scenarios, each cut on its own.
+    Returns directed_coupling_sequential [..., N, N] bool. The edge loop
+    reads a longest path at every edge, so it runs on one host copy of
+    the batch's weights and the result goes back to their device.
     """
     directed = weighted_directed != 0.0
     if max_num_cls >= n_vehicles:
         return directed
-    n = weighted_directed.shape[0]
     if max_num_cls <= 1:
         return torch.zeros_like(directed)
+    n = weighted_directed.shape[-1]
+    host = weighted_directed.cpu().reshape(-1, n, n)
+    seq = torch.stack([_greedy_cut_one(w, max_num_cls) for w in host])
+    return seq.reshape(directed.shape).to(directed.device)
 
+
+def _greedy_cut_one(weighted_directed: torch.Tensor,
+                    max_num_cls: int) -> torch.Tensor:
+    """``greedy_cut`` of one [N, N] weight matrix on the host."""
+    n = weighted_directed.shape[0]
     flat_w = weighted_directed.reshape(-1)
     is_edge = flat_w != 0.0
     m = int(is_edge.sum())
@@ -183,10 +212,9 @@ def greedy_cut(weighted_directed: torch.Tensor, max_num_cls: int,
     # diagonal, "none" otherwise); accepting (r, c) only lengthens chains
     # through it
     none = -n * 4
-    reach = torch.full((n, n), none, dtype=torch.int64,
-                       device=directed.device)
+    reach = torch.full((n, n), none, dtype=torch.int64)
     reach.fill_diagonal_(0)
-    seq = torch.zeros_like(directed)
+    seq = torch.zeros((n, n), dtype=torch.bool)
     for e in order[:m].tolist():
         r, c = divmod(e, n)
         up = int(reach[:, r].max())
@@ -216,13 +244,14 @@ def fallback_closure(fallbacks: torch.Tensor, adjacency: torch.Tensor,
     """Propagate fallbacks through the coupling graph minus the sequential
     edges out of falling-back vehicles (their predictions were consumed).
     Reference: PrioritizedController.check_others_fallback (:650-674).
-    Returns the closed fallback vector [N] bool.
+    Returns the closed fallback vector [..., N] bool (leading dims batch
+    scenarios).
     """
-    n = adjacency.shape[0]
+    n = adjacency.shape[-1]
     adj = adjacency.bool()
-    outgoing = sequential.bool() & fallbacks[:, None]
-    fb_matrix = adj & ~(outgoing | outgoing.T)
+    outgoing = sequential.bool() & fallbacks[..., :, None]
+    fb_matrix = adj & ~(outgoing | outgoing.mT)
     reach = fallbacks
     for _ in range(n):
-        reach = reach | torch.any(fb_matrix & reach[:, None], dim=0)
+        reach = reach | torch.any(fb_matrix & reach[..., :, None], dim=-2)
     return reach

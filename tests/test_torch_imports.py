@@ -1,10 +1,13 @@
-"""The port stands alone: no module of pdmpc_torch, nor chip_smoke.py or
-compare_trees.py, loads jax or anything of pdmpc_tpu; and its entry points
-refuse to fall back to the CPU silently."""
+"""The port stands alone: no module of pdmpc_torch (the batch modules
+``parallel.sharded`` and ``eval.experiments`` among them), nor
+chip_smoke.py or compare_trees.py, loads jax or anything of pdmpc_tpu; and
+its entry points, the batched ones too, refuse to fall back to the CPU
+silently."""
 
 import os
 import subprocess
 import sys
+from functools import partial
 
 import pytest
 import torch
@@ -20,6 +23,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import compare_trees
+assert {"pdmpc_torch.parallel.sharded", "pdmpc_torch.eval.experiments",
+        "pdmpc_torch.profile_step"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "pdmpc_tpu")))
 print(len(names), bad)
@@ -31,7 +36,7 @@ def test_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 18
     assert bad.strip() == "[]", bad
 
 
@@ -42,6 +47,22 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_experiment(Config(amount=3, T_end=0.2, beam_width=8))
+
+
+@pytest.mark.parametrize("entry", ["run_experiment_batch",
+                                   "monte_carlo_sweep"])
+def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
+    from pdmpc_torch import Config
+    from pdmpc_torch.eval.experiments import monte_carlo_sweep
+    from pdmpc_torch.experiment import run_experiment_batch
+
+    run = {"run_experiment_batch": partial(run_experiment_batch,
+                                           n_scenarios=2),
+           "monte_carlo_sweep": partial(monte_carlo_sweep, n_scenarios=2,
+                                        perturb_start_arc=1.0)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(Config(amount=3, T_end=0.2, beam_width=8))
 
 
 @pytest.mark.parametrize("what", ["random_priority", "random_weight",

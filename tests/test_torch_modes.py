@@ -34,6 +34,7 @@ import pdmpc_tpu.config as jc
 from pdmpc_torch import controller as tctl
 from pdmpc_torch.experiment import create_scenario, run_experiment
 from pdmpc_torch.models.mpa import build_mpa
+from pdmpc_torch.parallel.sharded import batched_initial_state
 from tests.golden import compare_golden, golden_path
 from tests.test_controller import pairwise_vehicle_collisions
 
@@ -112,10 +113,10 @@ def run_both(kw, obstacles=()):
     tst = tsc.to_tensors("cpu")
     step = tctl.make_prioritized_step(tcfg, tm.to_tensors_for(tcfg, "cpu"),
                                       tst)
-    state, got = tctl.initial_state(tst, tcfg.Hp), []
+    state, got = batched_initial_state(tst, tcfg.Hp, 1), []
     for k in range(tcfg.k_end):
         state, info = step(state, k)
-        got.append(tctl.infos_to_numpy(info))
+        got.append(tctl.infos_to_numpy(tctl.StepInfo(*(x[0] for x in info))))
     return got, want
 
 
