@@ -91,7 +91,33 @@ Phases, any failure exits non-zero:
    device ms of one profiled step, peak memory and the host ms of the
    coloring and the merged schedule printed; (e) the fullest merged chunk
    of (b) planned with kernels and with plain versions, every layer's
-   lattice-form call held bit for bit and timed.
+   lattice-form call held bit for bit and timed;
+17. the planning modes of the eighth slice: (a) HDVs on the road, cr20
+   with vehicles 3 and 11 human-driven (beam 512, 20 steps; the road
+   kernels with four obstacle families) and (b) on the circle, circle-10
+   with vehicle 0 human-driven (40 steps; SAT), each held with the exact
+   gate to the JAX package's own CPU run of its configuration
+   (``tests/torch_fixtures/reference_*.npz``, ``python -m
+   tests.test_torch_reference_records``): collision-free and road
+   vehicles on the map but where the reference's run is not (an HDV
+   does not yield: it hits CAVs that fall back into its path, and a CAV
+   dodging one leaves the map, there too), every vehicle moving more
+   than 0.3 m,
+   each HDV following its path more than 2 m, outside the coupling graph
+   and never falling back; (c) one chunk of each with HDV obstacles planned
+   with kernels and with plain versions, every layer's lattice-form call
+   held bit for bit and timed; (d) centralized planning on circle-3
+   (beam 2,048: 12^3 x 2,048 joint candidates a layer), 20 steps, and
+   (e) centralized cr3 (beam 1,024), 10 steps, its boundary checks
+   through ``boundary_hits``' (cx, cy) form: each held to the reference's
+   CPU run as (a) is (circle-3's joint search exhausts from step 7 on
+   there too: the three vehicles meet at the center and hold their
+   poses), then cr3 again with every boundary call held against
+   ``boundary_hits_plain`` on the same inputs and the first step's timed;
+   (f) optimal and explorative voting in a batch, cr20 at beam 256, 5
+   steps, ``monte_carlo_sweep`` of 4 scenarios (1 m of arc): every entry
+   equal to its run alone in every field, the batch's step median and
+   vehicle-solves/s printed against the four single runs'.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -100,10 +126,12 @@ numbers, launches from phases 3 and 5), ``live_mask``, ``path`` (phase 8,
 per layer and per plan; for the road kernels also ``path_mixed64``,
 phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
 ``path_sampled`` (phase 14's sampled chunk, (cx, cy) form),
-``path_batch`` (for the road kernels: phase 16e's merged chunk), ``oversize``
+``path_batch`` (for the road kernels: phase 16e's merged chunk),
+``path_hdv`` (phase 17c's chunk; road kernels on the road, SAT on the
+circle), ``path_centralized`` (boundary: phase 17e's first step), ``oversize``
 (phase 13, per size and budget), ``launches_per_step`` and
 ``launches_by_path`` (launches, launches a step and lattice-form launches
-of every driven run of phases 3, 5 and 9 to 16); for SAT also ``lattice``
+of every driven run of phases 3, 5 and 9 to 17); for SAT also ``lattice``
 (phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
 and device ms of one step's threefry noise at cr20's sampled shape).
 """
@@ -1369,6 +1397,240 @@ def batched_rollouts(torch, coll, Config, card, dims, record, headline,
                 row_key="path_batch")
 
 
+def hdv_slots(cfg):
+    """Rank of a recorded planning chunk of an HDV run: its active slots
+    in the HDV family (after the predecessors', the parallel and the
+    successor families), then all its active slots."""
+    from pdmpc_torch import ConstraintFromSuccessor
+
+    n = cfg.amount
+    first = (2 + (cfg.constraint_from_successor
+                  != ConstraintFromSuccessor.none)) * n
+
+    def rank(args, kwargs):
+        return (int(args[5].mask[:, first:first + n].sum()),
+                active_slots(args, kwargs))
+    return rank
+
+
+def reference_gate(res, cfg, label, name, dims, n_road):
+    """Hold a run to the JAX package's own CPU run of its configuration
+    (``tests/torch_fixtures/reference_<name>.npz``, written by ``python
+    -m tests.test_torch_reference_records``) with the exact gate: trims,
+    levels, fallbacks and adjacency equal, poses within 1e-4, cost within
+    rtol 1e-6. Then the behavior checks, where the reference's own run is
+    the measure: no collision and (for the first ``n_road`` vehicles) no
+    step off the map's lanelets that the reference's run does not have
+    too; every vehicle moves more than 0.3 m. Prints what the reference
+    shares."""
+    from types import SimpleNamespace
+
+    with np.load(os.path.join(HERE, "tests", "torch_fixtures",
+                              f"reference_{name}.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    for field in ("trims", "levels", "needs_fallback", "is_exhausted",
+                  "adjacency"):
+        if not np.array_equal(getattr(res.infos, field), ref[field]):
+            raise AssertionError(f"{label}: {field} differs from the "
+                                 f"reference's run")
+    pose_err = float(np.abs(res.infos.poses - ref["poses"]).max())
+    # cost as np.testing.assert_allclose(rtol=1e-6, atol=1e-6) holds it
+    got_cost, ref_cost = res.infos.cost, ref["cost"]
+    finite = np.isfinite(ref_cost)
+    if not (np.array_equal(finite, np.isfinite(got_cost))
+            and np.all(np.abs(got_cost[finite] - ref_cost[finite])
+                       <= 1e-6 + 1e-6 * np.abs(ref_cost[finite]))):
+        raise AssertionError(f"{label}: cost off the reference's run")
+    cost_rel = float(np.max(np.abs(got_cost[finite] - ref_cost[finite])
+                            / np.maximum(np.abs(ref_cost[finite]), 1e-9),
+                            initial=0.0))
+    if pose_err > 1e-4:
+        raise AssertionError(f"{label}: poses {pose_err:.3e} off the "
+                             f"reference's run")
+    poses = res.infos.poses[:, :, 0]
+    ref_res = SimpleNamespace(infos=SimpleNamespace(poses=ref["poses"]))
+    shared = set(vehicle_collisions(ref["poses"][:, :, 0], *dims))
+    collisions = vehicle_collisions(poses, *dims)
+    if set(collisions) - shared:
+        raise AssertionError(f"{label}: vehicle collisions the reference "
+                             f"has not: {sorted(set(collisions) - shared)}")
+    off = road_offroad(res, cfg, n_road, route=False) if n_road else []
+    ref_off = (set(road_offroad(ref_res, cfg, n_road, route=False))
+               if n_road else set())
+    if set(off) - ref_off:
+        raise AssertionError(f"{label}: off the road where the reference "
+                             f"is not: {sorted(set(off) - ref_off)}")
+    moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
+    if not (moved > 0.3).all():
+        raise AssertionError(f"{label}: stuck vehicles: moved {moved}")
+    print(f"{label}: equal to the reference's CPU run (trims, levels, "
+          f"fallbacks, adjacency; poses within {pose_err:.3e}, cost rel "
+          f"{cost_rel:.3e}); (step, i, j) collisions, as in the reference's "
+          f"run: {collisions}; (step, vehicle) off the map, as in the "
+          f"reference's run: {off}; min distance moved {moved.min():.3f} m",
+          flush=True)
+
+
+def check_hdvs(res, label, hdv_ids):
+    """Each HDV follows its path (more than 2 m), stays outside the
+    coupling graph and never falls back."""
+    infos = res.infos
+    poses = infos.poses[:, :, 0]
+    for h in hdv_ids:
+        moved = float(np.linalg.norm(poses[-1, h, :2] - poses[0, h, :2]))
+        if moved <= 2.0:
+            raise AssertionError(f"{label}: HDV {h} moved {moved:.3f} m")
+        if infos.adjacency[:, h].any() or infos.adjacency[:, :, h].any():
+            raise AssertionError(f"{label}: HDV {h} in the coupling graph")
+        if infos.needs_fallback[:, h].any():
+            raise AssertionError(f"{label}: HDV {h} fell back")
+    moved = np.linalg.norm(poses[-1, :, :2] - poses[0, :, :2], axis=-1)
+    print(f"{label}: HDVs {hdv_ids} followed their paths "
+          f"({np.round(moved[list(hdv_ids)].astype(float), 3).tolist()} m), "
+          f"outside the coupling graph, never fell back", flush=True)
+
+
+def human_driven(torch, coll, Config, card, dims, record, rows):
+    """Phase 17a to c: HDVs on the road and on the circle, and one HDV
+    chunk of each held with kernels and plain versions."""
+    from pdmpc_torch import ManualControlConfig, ScenarioType
+    from pdmpc_torch.experiment import run_experiment
+
+    road_kernels = ("outline_hits", "boundary_hits")
+    cases = (
+        ("hdv road", dict(amount=20), (3, 11), road_kernels, 4.0, 1.0),
+        ("hdv circle", dict(scenario_type=ScenarioType.circle, amount=10),
+         (0,), ("sat_hits",), 8.0, 3.0))
+    for label, kw, hdv_ids, launched, t_end, t_chunk in cases:
+        mcc = ManualControlConfig(is_active=True, amount=len(hdv_ids),
+                                  hdv_ids=hdv_ids)
+        cfg = Config(T_end=t_end, manual_control_config=mcc, **kw)
+        road = launched == road_kernels
+        launches, res = counted_run(coll, run_experiment, cfg, label,
+                                    launched, lattice=True)
+        record(label, launches, res)
+        # an HDV does not yield: where CAVs fall back into its path it
+        # hits them, and a CAV dodging it can leave the map, in the
+        # reference's run too, which the run is held to
+        reference_gate(res, cfg, label, label.replace(" ", "_"), dims,
+                       cfg.amount if road else 0)
+        check_hdvs(res, label, hdv_ids)
+        print(f"{label} ({card}): {step_line(res, launches)}, "
+              f"{cfg.amount * res.n_steps / res.timings['control_loop']:.1f}"
+              f" vehicle-solves/s, fallback share "
+              f"{float(res.infos.needs_fallback.mean()):.4f}", flush=True)
+        short = replace(cfg, T_end=t_chunk)
+        rank = hdv_slots(short)
+        calls = plans_with_plain_versions(torch, coll, run_experiment, short,
+                                          f"{label} chunk", rank=rank)
+        path_shapes(torch, coll, calls, rows, launched, f"{label} chunk",
+                    row_key="path_hdv")
+
+
+def centralized(torch, coll, Config, card, dims, record, rows):
+    """Phase 17d and e: centralized planning on circle-3 and on cr3, the
+    road run's boundary calls held against the plain version."""
+    from pdmpc_torch import ScenarioType
+    from pdmpc_torch.experiment import run_experiment
+    from pdmpc_torch.ops import search_centralized as scm
+
+    circle3 = Config(scenario_type=ScenarioType.circle, amount=3, T_end=4.0,
+                     beam_width=2048, is_prioritized=False)
+    cr3 = Config(amount=3, T_end=2.0, beam_width=1024, is_prioritized=False)
+    # circle-3 has no boundary and no static obstacle: no kernel launches
+    for label, cfg, launched, n_road in (
+            ("centralized circle3", circle3, (), 0),
+            ("centralized cr3", cr3, ("boundary_hits",), 3)):
+        launches, res = counted_run(coll, run_experiment, cfg, label,
+                                    launched, lattice=False)
+        record(label, launches, res)
+        reference_gate(res, cfg, label, label.replace(" ", "_"), dims,
+                       n_road)
+        print(f"{label} ({card}): {step_line(res, launches)}, "
+              f"{cfg.amount * res.n_steps / res.timings['control_loop']:.1f}"
+              f" vehicle-solves/s; the joint search exhausted (the fleet "
+              f"holding its poses), as in the reference's run, at steps "
+              f"{np.flatnonzero(res.infos.is_exhausted[:, 0]).tolist()}",
+              flush=True)
+    # the same run again, every boundary call held against the plain
+    # version on its inputs; the first step's calls recorded and timed
+    checked = {"calls": 0, "candidates": 0, "live": 0}
+    form_calls = []
+    kernel = scm.boundary_hits
+
+    def holding(cx, cy, pre, live):
+        out = kernel(cx, cy, pre, live)
+        if not torch.equal(out, coll.boundary_hits_plain(cx, cy, pre, live)):
+            raise AssertionError(f"centralized cr3: boundary call "
+                                 f"{checked['calls']} disagrees with "
+                                 f"boundary_hits_plain")
+        if len(form_calls) < cr3.Hp:
+            form_calls.append(("boundary_hits", len(form_calls),
+                               "boundary_hits", tuple(
+                                   x.clone() if torch.is_tensor(x) else x
+                                   for x in (cx, cy, pre, live))))
+        checked["calls"] += 1
+        checked["candidates"] = max(checked["candidates"], cx.shape[-1])
+        checked["live"] += int(live.sum())
+        return out
+
+    scm.boundary_hits = holding
+    try:
+        run_experiment(cr3, device="cuda")
+    finally:
+        scm.boundary_hits = kernel
+    print(f"centralized cr3 ({card}): {checked['calls']} boundary calls "
+          f"equal to boundary_hits_plain, up to {checked['candidates']} "
+          f"candidates a row, {checked['live']} live row-candidates in all",
+          flush=True)
+    path_shapes(torch, coll, form_calls, rows, ("boundary_hits",),
+                "centralized cr3 step", row_key="path_centralized")
+
+
+def voting_batch(torch, coll, Config, card, record):
+    """Phase 17f: optimal and explorative voting as a sweep of 4 cr20
+    scenarios, every entry held to its run alone, the batch's step times
+    and vehicle-solves/s against the single runs'."""
+    from pdmpc_torch import PriorityStrategies as P
+    from pdmpc_torch.controller import StepState, make_run
+    from pdmpc_torch.eval.experiments import (
+        monte_carlo_sweep,
+        perturbed_states,
+    )
+
+    b, arc = 4, 1.0
+    for priority in (P.optimal_priority, P.explorative_priority):
+        label = f"voting batch {priority.value}"
+        cfg = Config(amount=20, T_end=1.0, beam_width=256, priority=priority)
+        launches, res = counted_run(
+            coll, partial(monte_carlo_sweep, n_scenarios=b,
+                          perturb_start_arc=arc), cfg, label,
+            ("outline_hits", "boundary_hits"))
+        record(label, launches, res)
+        cfg, mpa_t, sc_t = batch_tensors(cfg)
+        states = perturbed_states(sc_t, cfg, b, arc)
+        alone_seconds = []
+        for i in range(b):
+            _, alone = make_run(cfg)(StepState(*(x[i:i + 1] for x in states)),
+                                     mpa_t, sc_t, alone_seconds)
+            bad = differing_fields(type(alone)(*(x[0].cpu() for x in alone)),
+                                   batch_entry(res, i).infos)
+            if bad:
+                raise AssertionError(f"{label}: entry {i} alone differs in "
+                                     f"{bad}")
+        steps = np.asarray(res.timings["step_seconds"]) * 1e3
+        alone_ms = np.asarray(alone_seconds) * 1e3
+        print(f"{label} ({card}): {b} entries equal to their runs alone; "
+              f"batch step median {np.median(steps):.3f} ms, "
+              f"{res.timings['vehicle_solves_per_second']:.1f} "
+              f"vehicle-solves/s; single runs step median "
+              f"{np.median(alone_ms):.3f} ms, "
+              f"{b * cfg.amount * cfg.k_end / alone_ms.sum() * 1e3:.1f} "
+              f"vehicle-solves/s; {step_line(res, launches)}; vote rows "
+              f"chosen {np.unique(res.infos.priority_permutation).tolist()}",
+              flush=True)
+
+
 # keys of a kernel's row in the JSON line, and their types
 CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
             "launches": int, "max_abs_err": float, "ms": float,
@@ -1566,6 +1828,10 @@ def main() -> int:
     # ---- 16. batched rollouts: one merged chunk loop for B scenarios -----
     batched_rollouts(torch, coll, Config, card, dims, record, headline,
                      headline_res, rows)
+    # ---- 17. HDVs, centralized planning and voting in a batch -----------
+    human_driven(torch, coll, Config, card, dims, record, rows)
+    centralized(torch, coll, Config, card, dims, record, rows)
+    voting_batch(torch, coll, Config, card, record)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]

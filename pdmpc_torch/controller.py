@@ -28,9 +28,16 @@ chunks, a planning row being a (scenario, vehicle) pair with its own
 scenario's obstacles. Each scenario's records equal those of planning it
 alone; a single run is a batch of one.
 
-HDVs, centralized search and the dense level loop are not ported yet and
-raise NotImplementedError, as do the voting modes in a batch of more than
-one scenario.
+Human-driven vehicles (``Config.manual_control_config``) do not plan:
+each drives its reference path, stays outside the coupling graph, and
+the CAVs avoid its lane-bounded reachable sets unless it is behind them
+(a fourth obstacle family). The voting modes run at any B: candidate p of
+every scenario is one solve, one merged chunk loop, and each scenario
+votes on its own. ``make_centralized_step`` plans the whole fleet as one
+joint search over the trim product (``ops.search_centralized``), and
+``make_run`` takes it when ``Config.is_prioritized`` is off. The parallel
+computation modes and their dense level loop are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,9 +70,14 @@ from pdmpc_torch.ops.search import (
     plan_trajectory_sampled,
     rollout_noise,
 )
+from pdmpc_torch.ops.search_centralized import plan_centralized
 from pdmpc_torch.parallel import graph as graph_ops
 from pdmpc_torch.parallel.comm import LocalComm
-from pdmpc_torch.scenarios.scenario import VO, ScenarioTensors
+from pdmpc_torch.scenarios.scenario import (
+    VO,
+    ScenarioTensors,
+    map_position_to_closest_lanelets,
+)
 
 # Reference: PrioritizedController.consider_successors (:536)
 STANDSTILL_SPEED = 0.01
@@ -152,26 +164,15 @@ VOTING = (PriorityStrategies.optimal_priority,
           PriorityStrategies.explorative_priority)
 
 
-def check_main_path(cfg: Config, n_scenarios: int = 1) -> None:
-    """Raise NotImplementedError for anything the port does not run yet:
-    human-driven vehicles, centralized planning, the parallel computation
-    mode and, in a batch of more than one scenario, the voting modes
-    (their candidate sets are ragged across scenarios: optimal voting
-    votes per coupling subgraph, explorative voting shifts per
-    computation level)."""
-    refused = [
-        (not cfg.is_prioritized, "centralized planning"),
-        (cfg.computation_mode != ComputationMode.sequential,
-         f"computation_mode={cfg.computation_mode.value}"),
-        (cfg.manual_control_config.is_active, "human-driven vehicles"),
-        (n_scenarios > 1 and cfg.priority in VOTING,
-         f"priority={cfg.priority.value} over {n_scenarios} scenarios"),
-    ]
-    missing = [what for no, what in refused if no]
-    if missing:
+def check_main_path(cfg: Config) -> None:
+    """Raise NotImplementedError for what the port does not run yet: the
+    parallel computation modes (their dense level loop and the
+    distributed backend). HDVs, centralized planning and both voting
+    modes run, at any batch size."""
+    if cfg.computation_mode != ComputationMode.sequential:
         raise NotImplementedError(
-            "pdmpc_torch does not run " + ", ".join(missing) + " yet"
-        )
+            f"pdmpc_torch does not run computation_mode="
+            f"{cfg.computation_mode.value} yet")
 
 
 # ---------------------------------------------------------------------------
@@ -221,18 +222,35 @@ def _unique_padded(ids: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def _occupied_area(pose, offset: float):
-    """Vehicle rectangles [N, 4, 2] at poses [N, 3]. Reference:
+    """Vehicle rectangles [..., 4, 2] at poses [..., 3]. Reference:
     get_occupied_areas.m."""
     return geo.transformed_rectangle(
-        pose[:, 0], pose[:, 1], pose[:, 2],
+        pose[..., 0], pose[..., 1], pose[..., 2],
         VEHICLE_LENGTH + 2 * offset, VEHICLE_WIDTH + 2 * offset,
     )
 
 
-def _reachable_sets_at_pose(mpa: MpaTensors, pose, trim):
-    """Offline local reachable sets moved to the vehicle poses: [N, Hp, K, 2].
-    Reference: MotionPrimitiveAutomaton.reachable_sets_at_pose (:649-687)."""
-    local = mpa.local_reachable_sets[trim]                   # [N, Hp, K, 2]
+def _occupied_area_fused(pose, offset: float):
+    """``_occupied_area`` with the rotation fused as XLA:CPU compiles the
+    reference's HDV apply (tests/test_torch_numerics.py):
+    x = fma(c, lx, -(s * ly)) + px, y = fma(s, lx, c * ly) + py."""
+    hx = (VEHICLE_LENGTH + 2 * offset) / 2.0
+    hy = (VEHICLE_WIDTH + 2 * offset) / 2.0
+    local = torch.tensor([[-hx, -hy], [hx, -hy], [hx, hy], [-hx, hy]],
+                         dtype=torch.float32, device=pose.device)
+    lx, ly = local[:, 0], local[:, 1]
+    c = torch.cos(pose[..., 2])[..., None]
+    s = torch.sin(pose[..., 2])[..., None]
+    return torch.stack([geo.fma(c, lx, -(s * ly)) + pose[..., 0:1],
+                        geo.fma(s, lx, c * ly) + pose[..., 1:2]], dim=-1)
+
+
+def _reachable_sets_at_pose(local_sets, pose, trim):
+    """Offline local reachable sets ``local_sets`` [n, Hp, K, 2] (the
+    MPA's, or the HDVs' non-recursive ones) moved to the vehicle poses:
+    [N, Hp, K, 2]. Reference: MotionPrimitiveAutomaton.
+    reachable_sets_at_pose (:649-687)."""
+    local = local_sets[trim]                                 # [N, Hp, K, 2]
     return geo.transform_polygon(local, pose[:, 0, None], pose[:, 1, None],
                                  pose[:, 2, None])
 
@@ -366,49 +384,50 @@ _EXHAUSTED_PENALTY = 1e9
 
 def _solve_optimal(cfg: Config, comm, solve, adjacency):
     """optimal_priority (PrioritizedOptimalController.m +
-    Prioritizer.unique_priorities): every unordered coupled pair gets a bit
-    equal to its edge rank within its weakly-connected component, and
-    candidate row p of the [P, N, N] stack orients each edge by that bit
-    of p, P = 2^e_cap. A component with up to e_cap edges has all its
-    orientations in the stack; cyclic ones are masked out of its vote (row
-    0, all forward, is always acyclic). Each component then adopts its
-    cost-minimal row (pdmpc_tpu controller._solve_optimal)."""
-    n = adjacency.shape[0]
+    Prioritizer.unique_priorities) of every scenario of a batch
+    (adjacency [B, N, N]): every unordered coupled pair gets a bit equal
+    to its edge rank within its weakly-connected component, and candidate
+    row p of the [P, B, N, N] stack orients each edge by that bit of p,
+    P = 2^e_cap for every scenario. A component with up to e_cap edges has
+    all its orientations in the stack; cyclic ones are masked out of its
+    vote (row 0, all forward, is always acyclic). Each component then
+    adopts its cost-minimal row (pdmpc_tpu controller._solve_optimal)."""
+    n = adjacency.shape[-1]
     dev = adjacency.device
     e_cap = max(1, int(cfg.max_priority_permutations).bit_length() - 1)
     e_cap = max(1, min(e_cap, n * (n - 1) // 2))
     p_cnt = 1 << e_cap
+    labels = torch.arange(n, device=dev)
 
-    belonging = graph_ops.weak_components(adjacency)        # [N]
+    belonging = graph_ops.weak_components(adjacency)        # [B, N]
     iu, ju = torch.triu_indices(n, n, 1, device=dev)         # pair slots
-    edge_present = adjacency[iu, ju]                         # [S]
-    edge_comp = belonging[iu]
+    edge_present = adjacency[:, iu, ju]                      # [B, S]
+    edge_comp = belonging[:, iu]
     s = iu.shape[0]
     # rank of each present edge within its component (earlier slots first)
-    same_comp = edge_comp[None, :] == edge_comp[:, None]
+    same_comp = edge_comp[:, None, :] == edge_comp[:, :, None]
     before = torch.ones((s, s), dtype=torch.bool, device=dev).tril(-1)
-    rank = (same_comp & before & edge_present[None, :]).sum(dim=1)
+    rank = (same_comp & before & edge_present[:, None, :]).sum(dim=-1)
     bit = rank % e_cap
-    p_idx = torch.arange(p_cnt, device=dev)
+    p_idx = torch.arange(p_cnt, device=dev)[:, None, None]
     # bit clear = forward (i < j): row 0 is the all-forward orientation,
     # the reference's first enumerated candidate
-    forward = ((p_idx[:, None] >> bit[None, :]) & 1) == 0    # [P, S]
-    directed_stack = torch.zeros((p_cnt, n, n), dtype=torch.bool,
+    forward = ((p_idx >> bit[None]) & 1) == 0               # [P, B, S]
+    directed_stack = torch.zeros((p_cnt, *adjacency.shape), dtype=torch.bool,
                                  device=dev)
-    directed_stack[:, iu, ju] = forward & edge_present[None, :]
-    directed_stack[:, ju, iu] = ~forward & edge_present[None, :]
+    directed_stack[..., iu, ju] = forward & edge_present[None]
+    directed_stack[..., ju, iu] = ~forward & edge_present[None]
 
     # a component is invalid in row p iff its orientation leaves a cycle
     # (Kahn keeps cycle members at level 0)
-    stuck = graph_ops.kahn_levels(directed_stack)[0] == 0    # [P, N]
-    onehot_b = belonging[:, None] == torch.arange(n, device=dev)[None, :]
-    invalid_pc = (stuck[:, :, None] & onehot_b[None]).any(dim=1)
+    stuck = graph_ops.kahn_levels(directed_stack)[0] == 0    # [P, B, N]
+    onehot_b = belonging[..., None] == labels                # [B, N, labels]
+    invalid_pc = (stuck[..., None] & onehot_b[None]).any(dim=-2)
 
     # a component with more than e_cap edges shares bit positions and is
     # explored only in part (the reference enumerates all 2^edges)
-    edges_per_comp = (edge_present[:, None]
-                      & (edge_comp[:, None] == torch.arange(n, device=dev))
-                      ).sum(dim=0)
+    edges_per_comp = (edge_present[..., None]
+                      & (edge_comp[..., None] == labels)).sum(dim=-2)
     max_edges = int(edges_per_comp.max()) if s else 0
     if max_edges > e_cap:
         warnings.warn(
@@ -449,9 +468,11 @@ def _vote_lanes(p_cnt: int, n: int) -> int:
 
 
 def _subgraph_totals(cost_g, belonging):
-    """Vote totals [P, N-labels]: each candidate row's costs ``cost_g``
-    [N, P] summed over the members of each subgraph label, rounded to 8
-    decimals (PrioritizedOptimalController.m:104).
+    """Vote totals [..., P, N-labels]: each candidate row's costs
+    ``cost_g`` [..., N, P] summed over the members of each subgraph label
+    (``belonging`` [..., N]), rounded to 8 decimals
+    (PrioritizedOptimalController.m:104); leading dims batch scenarios,
+    each summed as alone.
 
     The reference contracts with a one-hot matmul on XLA:CPU, and which
     order that sums the vehicles in depends on the shape
@@ -463,27 +484,30 @@ def _subgraph_totals(cost_g, belonging):
     added; every other shape sums the vehicles one after another. The
     orders are spelled out here so the totals equal the reference's bit
     for bit (tests/test_torch_strategies.py holds them); non-members add
-    exact zeros in place. The rounding is ``jnp.round``'s as XLA compiles
-    it: round half to even of x * 1e8, times the f32 constant 1e-8 (XLA
-    turns the division by 1e8 into that product).
+    exact zeros in place. Under the reference's ``jax.vmap`` over
+    scenarios the batched contraction sums each scenario in the same
+    order as alone (tests/test_torch_voting_batch.py). The rounding is
+    ``jnp.round``'s as XLA compiles it: round half to even of x * 1e8,
+    times the f32 constant 1e-8 (XLA turns the division by 1e8 into that
+    product).
     """
-    n, p_cnt = cost_g.shape
-    onehot = (belonging[:, None] == torch.arange(n, device=cost_g.device)
-              ).to(cost_g.dtype)                             # [N, labels]
-    terms = cost_g.T[:, :, None] * onehot[None]              # [P, N, labels]
+    n, p_cnt = cost_g.shape[-2:]
+    onehot = (belonging[..., None] == torch.arange(n, device=cost_g.device)
+              ).to(cost_g.dtype)                         # [..., N, labels]
+    terms = cost_g.mT[..., None] * onehot[..., None, :, :]  # [.., P, N, L]
     k = _vote_lanes(p_cnt, n)
     full = k * (n // k) if k > 1 else 0
     total = None
     if full:
-        lane = [terms[:, j] for j in range(k)]
+        lane = [terms[..., j, :] for j in range(k)]
         for i in range(k, full):
-            lane[i % k] = lane[i % k] + terms[:, i]
+            lane[i % k] = lane[i % k] + terms[..., i, :]
         while len(lane) > 1:
             lane = [lane[j] + lane[j + 1] for j in range(0, len(lane), 2)]
         total = lane[0]
     rest = None
     for i in range(full, n):
-        rest = terms[:, i] if rest is None else rest + terms[:, i]
+        rest = terms[..., i, :] if rest is None else rest + terms[..., i, :]
     if total is None:
         total = rest
     elif rest is not None:
@@ -492,33 +516,41 @@ def _subgraph_totals(cost_g, belonging):
 
 
 def _vote_per_subgraph(comm, solve, directed_stack, belonging, invalid_pc,
-                       solve_rows=None):
-    """Solve every candidate directed coupling and adopt, per
-    weakly-connected subgraph, the cost-minimal candidate: the shared
-    voting tail of the optimal and explorative modes (the SolutionCost
-    exchange and PrioritizedExplorativeController.choose_solution:146-176;
-    pdmpc_tpu controller._vote_per_subgraph).
+                       taking_part=None):
+    """Solve every candidate directed coupling of every scenario and
+    adopt, per weakly-connected subgraph of each scenario, the
+    cost-minimal candidate: the shared voting tail of the optimal and
+    explorative modes (the SolutionCost exchange and
+    PrioritizedExplorativeController.choose_solution:146-176; pdmpc_tpu
+    controller._vote_per_subgraph, under ``jax.vmap`` for a batch).
 
-    ``invalid_pc`` [P, N-labels]: candidate p may not win that label's
-    subgraph. ``solve_rows`` (default: all) are the rows solved; a row
-    left out must be invalid for every label, and never wins.
+    ``directed_stack`` [P, B, N, N]: candidate row p of every scenario,
+    solved by one ``solve(directed [B, N, N], scenarios)`` call, one
+    merged chunk loop. ``invalid_pc`` [P, B, N-labels]: candidate p may
+    not win that label's subgraph. ``taking_part`` (default: all) lists
+    per row p the scenarios whose candidate p is solved; a row left out
+    of a scenario must be invalid for each of its labels, and never wins
+    (rows no scenario takes are not solved at all).
     Returns (planned, planned_shapes, sequential, levels, priorities,
-    directed, chosen row [N])."""
-    p_cnt, n = directed_stack.shape[:2]
+    directed, chosen row), each with the leading scenario dim."""
+    p_cnt, bsz, n = directed_stack.shape[:3]
     if not vote_order_mapped(p_cnt, n):
         warnings.warn(
             f"vote totals over P={p_cnt} candidates of N={n} vehicles: "
             f"XLA:CPU's summation order is mapped for N <= 64 and P <= 64 "
             f"or P in (128, 256) only, so a total may part an ulp from the "
             f"reference's", stacklevel=3)
-    rows = torch.arange(n, device=directed_stack.device)
-    if solve_rows is None:
-        solve_rows = range(p_cnt)
-    solved = {p: solve(directed_stack[p]) for p in solve_rows}
+    dev = directed_stack.device
+    rows = torch.arange(n, device=dev)
+    scen = torch.arange(bsz, device=dev)[:, None]
+    if taking_part is None:
+        taking_part = [list(range(bsz))] * p_cnt
+    solved = {p: solve(directed_stack[p], part)
+              for p, part in enumerate(taking_part) if part}
     first = solved[min(solved)]
     stacked = [solved.get(p, first) for p in range(p_cnt)]
     planned_s = PlanResult(*(torch.stack(f) for f in
-                             zip(*(s[0] for s in stacked))))
+                             zip(*(s[0] for s in stacked))))  # [P, B, ...]
     shapes_s = torch.stack([s[1] for s in stacked])
     seq_s = torch.stack([s[2] for s in stacked])
 
@@ -526,27 +558,30 @@ def _vote_per_subgraph(comm, solve, directed_stack, belonging, invalid_pc,
     # the vote (inf * 0 in the sum would poison every other subgraph)
     cost_l = torch.where(planned_s.is_exhausted,
                          torch.full_like(planned_s.cost, _EXHAUSTED_PENALTY),
-                         planned_s.cost)                     # [P, N]
-    totals = _subgraph_totals(comm.gather_veh(cost_l.T), belonging)
-    totals = torch.where(invalid_pc, torch.full_like(totals, torch.inf),
-                         totals)
+                         planned_s.cost)                     # [P, B, N]
+    totals = _subgraph_totals(comm.gather_veh(cost_l.permute(1, 2, 0)),
+                              belonging)                     # [B, P, L]
+    totals = torch.where(invalid_pc.transpose(0, 1),
+                         torch.full_like(totals, torch.inf), totals)
     # first minimum per label, as jnp.argmin
-    best = totals.amin(dim=0, keepdim=True)
-    p_idx = torch.arange(p_cnt, device=totals.device)[:, None]
-    chosen_per_label = torch.where(totals == best, p_idx, p_cnt).amin(dim=0)
-    chosen_g = chosen_per_label[belonging]                   # [N]
+    best = totals.amin(dim=-2, keepdim=True)
+    p_idx = torch.arange(p_cnt, device=dev)[:, None]
+    chosen_per_label = torch.where(totals == best, p_idx,
+                                   p_cnt).amin(dim=-2)       # [B, L]
+    chosen_g = chosen_per_label.gather(-1, belonging)        # [B, N]
     chosen_l = comm.local_slice(chosen_g)
 
-    local_rows = torch.arange(comm.n_local, device=rows.device)
-    planned = PlanResult(*(x[chosen_l, local_rows] for x in planned_s))
-    shapes_g = shapes_s[chosen_g, rows]
-    sequential = seq_s[chosen_g, rows]
-    directed_comb = directed_stack[chosen_g, rows]
+    local_rows = torch.arange(comm.n_local, device=dev)
+    planned = PlanResult(*(x[chosen_l, scen, local_rows]
+                           for x in planned_s))
+    shapes_g = shapes_s[chosen_g, scen, rows]
+    sequential = seq_s[chosen_g, scen, rows]
+    directed_comb = directed_stack[chosen_g, scen, rows]
     levels, _ = graph_ops.kahn_levels(sequential)
     # winning priorities kept for the next step: vehicles ranked by
     # (subgraph label, level within it, index) (choose_solution, :165-172)
     key = belonging * (n * n) + levels * n + rows
-    priorities = graph_ops.ranks_of(torch.argsort(key))     # distinct keys
+    priorities = graph_ops.ranks_of(torch.argsort(key, dim=-1))
     return (planned, shapes_g, sequential, levels, priorities,
             directed_comb, chosen_l)
 
@@ -554,30 +589,36 @@ def _vote_per_subgraph(comm, solve, directed_stack, belonging, invalid_pc,
 def _solve_explorative(cfg: Config, comm, solve, directed, sequential0,
                        levels0, max_num_cls: int):
     """explorative_priority (arXiv:2501.10781,
-    PrioritizedExplorativeController.m): one prioritization per
-    computation level, from cyclic shifts of the levels (a Latin square,
-    :241-309); coupling edges whose shifted levels invert are swapped
-    (:311-319), and each weakly-connected subgraph of the cut sequential
-    graph adopts its cost-minimal shift (:146-176).
+    PrioritizedExplorativeController.m) of every scenario of a batch
+    (directed, sequential0 [B, N, N], levels0 [B, N]): one prioritization
+    per computation level, from cyclic shifts of the levels (a Latin
+    square, :241-309); coupling edges whose shifted levels invert are
+    swapped (:311-319), and each weakly-connected subgraph of the cut
+    sequential graph adopts its cost-minimal shift (:146-176).
 
     The reference solves all ``max_num_cls`` rows and masks the shifts
-    beyond the level count out of the vote; those can never win, so only
-    the valid shifts are solved here (one solve a computation level)."""
-    n = directed.shape[0]
+    beyond a scenario's level count out of its vote; those can never
+    win, so a scenario takes part only in its own valid shifts,
+    min(levels, max_num_cls) of them: rows 0 to the batch's largest count
+    are solved, each in one merged chunk loop of the scenarios it has."""
     dev = directed.device
     l_max = max(max_num_cls, 1)
-    n_levels = max(int(levels0.max()), 1)
-    belonging = graph_ops.weak_components(sequential0)      # [N]
-    coupled = directed | directed.T
-    p = torch.arange(l_max, device=dev)[:, None]
-    lv = ((levels0[None] - 1 + p) % n_levels) + 1            # [P, N]
-    lower = lv[:, :, None] < lv[:, None, :]
-    equal = lv[:, :, None] == lv[:, None, :]
-    directed_stack = (coupled & lower) | (directed & equal)  # [P, N, N]
-    invalid_pc = (p >= n_levels).expand(l_max, n)
+    n_levels = torch.clamp_min(levels0.amax(dim=-1), 1)      # [B]
+    belonging = graph_ops.weak_components(sequential0)      # [B, N]
+    coupled = directed | directed.mT
+    p = torch.arange(l_max, device=dev)
+    lv = ((levels0[None] - 1 + p[:, None, None])
+          % n_levels[None, :, None]) + 1                     # [P, B, N]
+    lower = lv[..., :, None] < lv[..., None, :]
+    equal = lv[..., :, None] == lv[..., None, :]
+    directed_stack = (coupled & lower) | (directed & equal)  # [P, B, N, N]
+    invalid_pc = (p[:, None] >= n_levels)[..., None].expand(
+        l_max, *levels0.shape)
+    counts = n_levels.tolist()
+    taking_part = [[b for b, c in enumerate(counts) if row < c]
+                   for row in range(l_max)]
     return _vote_per_subgraph(comm, solve, directed_stack, belonging,
-                              invalid_pc, solve_rows=range(min(n_levels,
-                                                               l_max)))
+                              invalid_pc, taking_part)
 
 
 def compact_schedule(levels: torch.Tensor, c_chunk: int,
@@ -616,22 +657,28 @@ def _compact_rows(lv: list, seq: list, c_chunk: int):
 
 
 def merged_schedule(levels: torch.Tensor, c_chunk: int,
-                    sequential: torch.Tensor) -> list[torch.Tensor]:
+                    sequential: torch.Tensor,
+                    scenarios: list[int] | None = None
+                    ) -> list[torch.Tensor]:
     """The merged chunk loop of a batch of scenarios: each scenario's own
     ``compact_schedule`` (levels [B, N] and sequential [B, N, N], on the
     host), merged chunk t holding, scenario by scenario, the vehicles of
     each scenario's chunk t. A scenario past its last chunk adds none and
     padded slots (-1) are dropped, so the loop runs max_b n_chunks(b)
     times and plans every vehicle of every scenario once, after its own
-    scenario's sequential predecessors. Returns the merged chunks as
-    [3, V] i64 host tensors: each planning row's scenario b, vehicle v
-    and flattened row b * N + v."""
+    scenario's sequential predecessors. Only the ``scenarios`` listed
+    (default: all) take part; the others add no rows. Returns the merged
+    chunks as [3, V] i64 host tensors: each planning row's scenario b,
+    vehicle v and flattened row b * N + v."""
     n = levels.shape[-1]
-    own = [_compact_rows(lv, seq, c_chunk)
-           for lv, seq in zip(levels.tolist(), sequential.tolist())]
+    lv_all, seq_all = levels.tolist(), sequential.tolist()
+    if scenarios is None:
+        scenarios = range(len(lv_all))
+    own = [(b, *_compact_rows(lv_all[b], seq_all[b], c_chunk))
+           for b in scenarios]
     chunks = []
-    for t in range(max(count for _, count in own)):
-        rows = [(b, v) for b, (schedule, count) in enumerate(own)
+    for t in range(max(count for _, _, count in own)):
+        rows = [(b, v) for b, schedule, count in own
                 if t < count for v in schedule[t] if v >= 0]
         chunks.append(torch.tensor([[b for b, _ in rows],
                                     [v for _, v in rows],
@@ -655,7 +702,7 @@ def _del_first_rpt_last(arr: torch.Tensor, dim: int) -> torch.Tensor:
 
 # the per-vehicle tensors of a scenario, which the traffic info reads
 _PER_VEHICLE = ("reference_paths", "path_cumlen", "is_loop",
-                "reference_speed", "segment_lanelet")
+                "reference_speed", "segment_lanelet", "is_hdv")
 
 
 def _tile_scenario(scenario: ScenarioTensors, b: int) -> ScenarioTensors:
@@ -665,6 +712,57 @@ def _tile_scenario(scenario: ScenarioTensors, b: int) -> ScenarioTensors:
         name: x.repeat(b, *(1,) * (x.dim() - 1))
         for name in _PER_VEHICLE
         if (x := getattr(scenario, name)) is not None})
+
+
+def _hdv_trim(mpa: MpaTensors, reference_speed):
+    """Each vehicle's HDV trim [N]: the straight trim (no steering) whose
+    speed is closest to its reference speed, the first on a tie
+    (pdmpc_tpu controller, HDV apply)."""
+    speed_dist = torch.where(
+        (torch.abs(mpa.trim_steering) < 1e-9)[None, :],
+        torch.abs(mpa.trim_speed[None, :] - reference_speed[:, None]),
+        torch.inf)
+    return torch.argmin(speed_dist, dim=-1)
+
+
+def _hdv_behind(road, current_lanelet, pose):
+    """[B, N CAV, N HDV] bool: HDV j is behind CAV i (is_hdv_behind.m;
+    update_hdv_traffic_info, HighLevelController.m:428-443): j's current
+    lanelet precedes i's, or they share or overlap it and j's heading
+    points away from i. An HDV behind would contain the CAV in its
+    reachable sets and make the search infeasible, so a CAV avoids only
+    HDVs not behind it. ``current_lanelet`` [B, N], ``pose`` [B, N, 3]."""
+    cl_i, cl_j = current_lanelet[..., :, None], current_lanelet[..., None, :]
+    pred_m = road.hdv_predecessor[cl_i, cl_j]
+    over_m = road.hdv_overlap[cl_i, cl_j]
+    same = cl_i == cl_j
+    vec = pose[..., None, :, :2] - pose[..., :, None, :2]   # [B, N, N, 2]
+    hx = torch.cos(pose[..., 2])[..., None, :]               # [B, 1, N]
+    hy = torch.sin(pose[..., 2])[..., None, :]
+    # the reference's d = 2 sum of products, as XLA:CPU fuses it
+    # (tests/test_torch_numerics.py)
+    scal = geo.fma(hy, vec[..., 1], hx * vec[..., 0])
+    return pred_m | ((same | over_m) & (scal < 0.0))
+
+
+def vehicles_at_intersection(time_step, times, positions,
+                             intersection_center, threshold):
+    """Which vehicles are inside the intersection, and since which step.
+
+    Vehicles within ``threshold`` of ``intersection_center`` are at the
+    intersection; ``times`` [N] holds each one's entry step (inf when
+    outside). positions [N, 2]. Returns (at [N] bool, times [N]).
+    Reference: hlc/controller/common/vehicles_at_intersection.m
+    (pdmpc_tpu controller.vehicles_at_intersection)."""
+    center = torch.as_tensor(intersection_center, dtype=positions.dtype,
+                             device=positions.device)
+    d = positions - center
+    at = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) < threshold
+    entering = at & ~torch.isfinite(times)
+    times = torch.where(entering, torch.as_tensor(
+        time_step, dtype=times.dtype, device=times.device), times)
+    times = torch.where(at, times, torch.inf)
+    return at, times
 
 
 def make_prioritized_step(cfg: Config, mpa: MpaTensors,
@@ -699,11 +797,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     if static is not None:
         static_polys = static[:, None].expand(-1, hp, VO, 2)
         static_mask = scenario.static_obstacle_mask[None].expand(n, -1)
+    # human-driven vehicles (HighLevelController.m:394-447): statically
+    # gated, so a run without them launches what it did before HDVs ran
+    use_hdv = cfg.manual_control_config.is_active
+    if use_hdv:
+        is_hdv = scenario.is_hdv                         # [N]
+        # a CAV avoids an HDV's reachable sets (the HDV family)
+        cav_avoids_hdv = is_hdv[None, :] & ~is_hdv[:, None] & not_self
+        hdv_trim = _hdv_trim(mpa, scenario.reference_speed)
     tiles = {}                    # B -> the scenario's vehicles B times
 
     def step(state: StepState, k: int):
         bsz = state.pose.shape[0]
-        check_main_path(cfg, bsz)
         if bsz not in tiles:
             tiles[bsz] = _tile_scenario(scenario, bsz)
         sc_rows = tiles[bsz]
@@ -715,15 +820,26 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         ref_points, v_ref, seg_idx, proj_seg = _reference_trajectory(
             mpa, sc_rows, pose_r, trim_r, dt
         )
-        reachable_sets = _reachable_sets_at_pose(mpa, pose_r,
-                                                 trim_r)  # [B*N, Hp, K, 2]
-        seg_pre = pred_lanelets = None
+        reachable_sets = _reachable_sets_at_pose(
+            mpa.local_reachable_sets, pose_r, trim_r)       # [B*N, Hp, K, 2]
+        seg_pre = pred_lanelets = current_lanelet = None
         if road is not None:
             # predicted lanelets -> boundary segments and corridor rings
             # (get_predicted_lanelets.m + get_lanelets_boundary.m)
             lane_of = sc_rows.segment_lanelet                # [B*N, P-1]
-            ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
-                             lane_of.gather(1, seg_idx)], dim=1)  # [.., Hp+1]
+            current_lanelet = lane_of.gather(1, proj_seg[:, None])
+            if use_hdv:
+                # an HDV's pose is measured, not planned, and may stray
+                # from its path: its current lanelet is the one with the
+                # closest centerline (HighLevelController.m:402,
+                # map_position_to_closest_lanelets.m)
+                closest, _ = map_position_to_closest_lanelets(
+                    road, pose_r[:, :2])
+                current_lanelet = torch.where(sc_rows.is_hdv[:, None],
+                                              closest[:, None],
+                                              current_lanelet)
+            ids = torch.cat([current_lanelet, lane_of.gather(1, seg_idx)],
+                            dim=1)                           # [B*N, Hp+1]
             pred_lanelets = _unique_padded(ids, _n_predicted_lanelets(hp))
             bnd_segs = road.boundary_segments[pred_lanelets].reshape(
                 rows, -1, 2, 2)
@@ -736,6 +852,15 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             # feed coupling and avoidance (bound_reachable_sets.m:1-50)
             reachable_sets = _bounded_to_corridor(
                 reachable_sets, corridor_rings, bnd_segs, bnd_mask)
+        if use_hdv:
+            # the HDVs' non-recursive reachable sets, clipped to their own
+            # corridors on a road (ManualVehicle.compute_reachable_lane,
+            # ManualVehicle.m:30-49)
+            hdv_rs = _reachable_sets_at_pose(mpa.local_reachable_sets_hdv,
+                                             pose_r, trim_r)
+            if road is not None:
+                hdv_rs = _bounded_to_corridor(hdv_rs, corridor_rings,
+                                              bnd_segs, bnd_mask)
 
         occupied_offset = _occupied_area(pose_r, cfg.offset)
         occupied_no_offset = _occupied_area(pose_r, 0.0)
@@ -760,6 +885,17 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             adjacency_lanelets=(road.adjacency_lanelets
                                 if road is not None else None),
         )                                                    # [B, N, N]
+        if use_hdv:
+            # HDVs stay outside the coupling graph; a CAV avoids an HDV's
+            # reachable sets unless the HDV is behind it
+            adjacency = adjacency & ~is_hdv[:, None] & ~is_hdv[None, :]
+            hdv_rs_g = comm.gather_veh(pad_polys_to_vo(
+                per_scenario(hdv_rs)))                   # [B, N, Hp, VO, 2]
+            hdv_family = cav_avoids_hdv
+            if road is not None:
+                hdv_family = hdv_family & ~_hdv_behind(
+                    road, comm.gather_veh(per_scenario(current_lanelet)[
+                        ..., 0]), pose_g)
         if sampled:
             # the rollouts' Gumbel noise depends on (seed, step, vehicle)
             # only: one draw a step serves every solve and every scenario
@@ -781,21 +917,25 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         # coupling avoidance by reachable sets or, without
         # isDealPredictionInconsistency, the previous plans shifted by a
         # step; 2: the successor constraint (standstill areas or previous
-        # plans; none: no family); then the static obstacles. Masks are
-        # [B, N planning, N obstacle] per family; a family the
-        # configuration never uses is not in the tensors at all.
+        # plans; none: no family); then the HDVs' reachable sets, then the
+        # static obstacles, in the reference's order, which fixes the
+        # obstacle slots and so the scan order. Masks are [B, N planning,
+        # N obstacle] per family; a family the configuration never uses is
+        # not in the tensors at all.
         if (not use_reachability or successor_mode
                 == ConstraintFromSuccessor.area_of_previous_trajectory):
             prev_shifted = _del_first_rpt_last(prev_shapes_g, 2)
         parallel_polys = (pad_polys_to_vo(rs_g) if use_reachability
                           else prev_shifted)          # [B, N, Hp, VO, 2]
 
-        def solve(directed_p):
+        def solve(directed_p, scenarios=None):
             """One prioritized solve of every scenario for its directed
             coupling [B, N, N]: weigh -> cut -> levels -> obstacle
-            families -> merged compact chunk loop. Returns (planned,
-            planned_shapes [B, N, Hp, VO, 2], sequential, levels);
-            ``planned.shapes`` are the same padded areas."""
+            families -> merged compact chunk loop, in which only the
+            ``scenarios`` listed (default: all) plan (the others' plans
+            stay zero). Returns (planned, planned_shapes [B, N, Hp, VO,
+            2], sequential, levels); ``planned.shapes`` are the same
+            padded areas."""
             weighted = _weigh(cfg, directed_p, pose_g, k, max_mpa_speed)
             sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
             levels, _ = graph_ops.kahn_levels(sequential)
@@ -815,6 +955,9 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                 masks.append(directed_p & prev_valid_g[:, None, :]
                              & not_self)
                 polys.append(prev_shifted)
+            if use_hdv:
+                masks.append(hdv_family.expand(bsz, n, n))
+                polys.append(hdv_rs_g)
             if static is not None:
                 masks.append(static_mask.expand(bsz, n, -1))
                 polys.append(static_polys.expand(bsz, *static_polys.shape))
@@ -824,7 +967,8 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             # ---- merged compact chunk loop: every vehicle planned once ---
             # the schedule needs levels on the host: one sync a solve for
             # the whole batch
-            chunks = merged_schedule(levels.cpu(), c_chunk, sequential.cpu())
+            chunks = merged_schedule(levels.cpu(), c_chunk, sequential.cpu(),
+                                     scenarios)
             # the plans; their swept areas padded to VO vertices, as the
             # obstacle family they become
             planned = PlanResult(
@@ -867,26 +1011,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                     field[bi, vi] = value
             return planned, planned.shapes, sequential, levels
 
-        if cfg.priority in VOTING:
-            # one scenario (check_main_path refuses voting in a larger
-            # batch): the vote runs on its [N, N] graph
-            def solve_one(directed_p):
-                planned_p, shapes_p, seq_p, levels_p = solve(directed_p[None])
-                return (PlanResult(*(x[0] for x in planned_p)), shapes_p[0],
-                        seq_p[0], levels_p[0])
-
-            if cfg.priority == PriorityStrategies.optimal_priority:
-                voted = _solve_optimal(cfg, comm, solve_one, adjacency[0])
-            else:
-                weighted0 = _weigh(cfg, directed, pose_g, k, max_mpa_speed)
-                sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
-                levels0, _ = graph_ops.kahn_levels(sequential0)
-                voted = _solve_explorative(cfg, comm, solve_one, directed[0],
-                                           sequential0[0], levels0[0],
-                                           max_num_cls)
-            planned = PlanResult(*(x[None] for x in voted[0]))
-            (planned_shapes, sequential, levels, priorities, directed,
-             perm_chosen) = (x[None] for x in voted[1:])
+        if cfg.priority == PriorityStrategies.optimal_priority:
+            (planned, planned_shapes, sequential, levels, priorities,
+             directed, perm_chosen) = _solve_optimal(cfg, comm, solve,
+                                                     adjacency)
+        elif cfg.priority == PriorityStrategies.explorative_priority:
+            weighted0 = _weigh(cfg, directed, pose_g, k, max_mpa_speed)
+            sequential0 = graph_ops.greedy_cut(weighted0, max_num_cls, n)
+            levels0, _ = graph_ops.kahn_levels(sequential0)
+            (planned, planned_shapes, sequential, levels, priorities,
+             directed, perm_chosen) = _solve_explorative(
+                 cfg, comm, solve, directed, sequential0, levels0,
+                 max_num_cls)
         else:
             planned, planned_shapes, sequential, levels = solve(directed)
             perm_chosen = torch.zeros((bsz, n), dtype=torch.int64,
@@ -906,10 +1042,13 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             bsz, n, hp, VO, 2)
         ss_cost = _tracking_cost(ss_poses, ref_points)
 
-        # fallback propagation over the coupling graph
-        fallbacks = graph_ops.fallback_closure(
-            is_exhausted & ~stay_still_ok, adjacency, sequential
-        )
+        # fallback propagation over the coupling graph; an HDV never
+        # falls back
+        needs_fallback = is_exhausted & ~stay_still_ok
+        if use_hdv:
+            needs_fallback = needs_fallback & ~is_hdv
+        fallbacks = graph_ops.fallback_closure(needs_fallback, adjacency,
+                                               sequential)
 
         # fallback plan: previous plan shifted by one, last repeated
         # (plan_fallback, :678-718); without a previous plan: stand still
@@ -943,6 +1082,21 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         final_trims = choose(planned.trims, ss_trims, fb_trims)
         final_shapes = choose(planned_shapes, ss_shapes, fb_shapes)
         final_cost = choose(planned.cost, ss_cost, fb_cost)
+        if use_hdv:
+            # HDVs drive their reference path (the lab's human input; in
+            # simulation the path stands in, ManualVehicle.m)
+            hdv_poses = torch.cat([ref_points,
+                                   _calculate_yaw(ref_points)[..., None]],
+                                  dim=-1)                    # [B, N, Hp, 3]
+            hdv_shapes = pad_polys_to_vo(_occupied_area_fused(hdv_poses,
+                                                              cfg.offset))
+            final_poses = torch.where(is_hdv[:, None, None], hdv_poses,
+                                      final_poses)
+            final_trims = torch.where(is_hdv[:, None], hdv_trim[:, None],
+                                      final_trims)
+            final_shapes = torch.where(is_hdv[:, None, None, None],
+                                       hdv_shapes, final_shapes)
+            fallbacks = fallbacks & ~is_hdv
 
         # ---- apply (Simulation.apply, plant/Simulation.m:86-117) ----------
         new_state = StepState(
@@ -981,9 +1135,109 @@ def _tracking_cost(poses, ref_points):
     return torch.sum(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1], dim=-1)
 
 
+def make_centralized_step(cfg: Config, mpa: MpaTensors,
+                          scenario: ScenarioTensors):
+    """Build ``step(state, k) -> (state, info)`` for centralized control
+    (CentralizedController.m; pdmpc_tpu controller.make_centralized_step):
+    one joint search over all vehicles' trims a scenario, with no coupling
+    graph and no fallback. The reference errors out on an infeasible
+    joint search (:61-70); here the fleet holds its poses and the step is
+    flagged exhausted. ``state`` and ``info`` carry a leading scenario dim
+    B, and each scenario is planned on its own, as under the reference's
+    ``jax.vmap``."""
+    check_main_path(cfg)
+    n = scenario.n_vehicles
+    hp = mpa.Hp
+    dt = cfg.dt_seconds
+    dev = scenario.start_poses.device
+    road = scenario.road
+    obstacles = None
+    if scenario.static_obstacles is not None:
+        n_static = scenario.static_obstacles.shape[0]
+        obstacles = Obstacles(
+            polys=scenario.static_obstacles[:, None].expand(n_static, hp,
+                                                            VO, 2),
+            mask=scenario.static_obstacle_mask[:, None].expand(n_static, hp))
+    tiles = {}
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+
+    def step(state: StepState, k: int):
+        del k
+        bsz = state.pose.shape[0]
+        if bsz not in tiles:
+            tiles[bsz] = _tile_scenario(scenario, bsz)
+        sc_rows = tiles[bsz]
+        rows = bsz * n
+        ref_points, v_ref, seg_idx, proj_seg = _reference_trajectory(
+            mpa, sc_rows, state.pose.reshape(rows, 3),
+            state.trim.reshape(rows), dt)
+        ref_points = ref_points.reshape(bsz, n, hp, 2)
+        v_ref = v_ref.reshape(bsz, n, hp)
+        # the joint search checks the prioritized one's constraints,
+        # lanelet boundaries included (are_constraints_satisfied_sat.m)
+        bnd_segs = bnd_mask = None
+        if road is not None:
+            lane_of = sc_rows.segment_lanelet
+            ids = torch.cat([lane_of.gather(1, proj_seg[:, None]),
+                             lane_of.gather(1, seg_idx)], dim=1)
+            pred_lanelets = _unique_padded(ids, _n_predicted_lanelets(hp))
+            bnd_segs = road.boundary_segments[pred_lanelets].reshape(
+                bsz, n, -1, 2, 2)
+            bnd_mask = road.boundary_seg_mask[pred_lanelets].reshape(
+                bsz, n, -1)
+
+        res = [plan_centralized(
+            mpa, state.pose[b], state.trim[b], ref_points[b], v_ref[b], dt,
+            cfg.beam_width, obstacles=obstacles,
+            boundary_segments=None if bnd_segs is None else bnd_segs[b],
+            boundary_mask=None if bnd_mask is None else bnd_mask[b])
+            for b in range(bsz)]
+        poses = torch.stack([r.poses.transpose(0, 1) for r in res])
+        trims = torch.stack([r.trims.transpose(0, 1) for r in res])
+        shapes = pad_polys_to_vo(torch.stack([r.shapes.transpose(0, 1)
+                                              for r in res]))
+        exhausted = torch.stack([r.is_exhausted for r in res])  # [B]
+        keep = exhausted[:, None]
+        new_state = StepState(
+            pose=torch.where(keep[..., None], state.pose, poses[:, :, 0]),
+            trim=torch.where(keep, state.trim, trims[:, :, 0]),
+            prev_poses=poses,
+            prev_trims=trims,
+            prev_shapes=shapes,
+            prev_valid=torch.ones((bsz, n), dtype=torch.bool, device=dev),
+            priorities_prev=state.priorities_prev,
+        )
+        per_vehicle = (bsz, n)
+        no_edges = torch.zeros((bsz, n, n), dtype=torch.bool, device=dev)
+        info = StepInfo(
+            poses=poses,
+            trims=trims,
+            shapes=shapes,
+            cost=torch.stack([r.cost / n for r in res])[:, None].expand(
+                per_vehicle),
+            needs_fallback=keep.expand(per_vehicle),
+            is_exhausted=keep.expand(per_vehicle),
+            n_expanded=torch.stack([r.n_expanded for r in res])[
+                :, None].expand(per_vehicle),
+            adjacency=(~eye).expand(bsz, n, n),
+            directed_coupling=no_edges,
+            directed_sequential=no_edges,
+            levels=torch.ones(per_vehicle, dtype=torch.int64, device=dev),
+            priorities=torch.arange(1, n + 1, device=dev).expand(
+                per_vehicle),
+            reference_points=ref_points,
+            priority_permutation=torch.zeros(per_vehicle, dtype=torch.int64,
+                                             device=dev),
+        )
+        return new_state, info
+
+    return step
+
+
 def make_run(cfg: Config):
     """Receding-horizon experiment (HighLevelController.m:334-373) of a
-    batch of scenarios: ``run(states0, mpa, scenario, step_seconds=None)
+    batch of scenarios, prioritized or, where ``Config.is_prioritized`` is
+    off, centralized: ``run(states0, mpa, scenario, step_seconds=None)
     -> (final_states, infos)``, the states with a leading scenario dim B
     and the infos [B, k_end, ...], as the reference's ``jax.vmap`` of its
     run returns them. When a list is given as ``step_seconds``, each
@@ -992,7 +1246,9 @@ def make_run(cfg: Config):
 
     def run(state: StepState, mpa: MpaTensors, scenario: ScenarioTensors,
             step_seconds: list | None = None):
-        step = make_prioritized_step(cfg, mpa, scenario)
+        make_step = (make_prioritized_step if cfg.is_prioritized
+                     else make_centralized_step)
+        step = make_step(cfg, mpa, scenario)
         sync = (torch.cuda.synchronize
                 if state.pose.device.type == "cuda" else (lambda: None))
         infos = []

@@ -37,12 +37,21 @@ from pdmpc_torch.scenarios.scenario import Scenario
 
 def create_scenario(options: Config, mpa: Mpa) -> Scenario:
     """Scenario factory (scenarios/Scenario.m:75-88): circle, mixed and
-    commonroad."""
+    commonroad, with the human-driven vehicles of
+    ``options.manual_control_config`` marked."""
     if options.scenario_type == ScenarioType.circle:
-        return create_circle_scenario(options, mpa)
-    if options.scenario_type == ScenarioType.mixed:
-        return create_mixed_scenario(options, mpa)
-    return create_commonroad_scenario(options, mpa)
+        scenario = create_circle_scenario(options, mpa)
+    elif options.scenario_type == ScenarioType.mixed:
+        scenario = create_mixed_scenario(options, mpa)
+    else:
+        scenario = create_commonroad_scenario(options, mpa)
+    # hdv_ids are 0-based indices into the fleet
+    mcc = options.manual_control_config
+    if mcc.is_active and mcc.hdv_ids:
+        is_hdv = np.zeros(scenario.n_vehicles, dtype=bool)
+        is_hdv[[int(i) for i in mcc.hdv_ids]] = True
+        scenario.is_hdv = is_hdv
+    return scenario
 
 
 @dataclass
@@ -113,7 +122,7 @@ def run_batch_from(options: Config, states0, device=None) -> ExperimentResult:
     mpa_t = mpa.to_tensors_for(options, device)
     sc_t = scenario.to_tensors(device)
     state0 = states0(sc_t, options)
-    check_main_path(options, state0.pose.shape[0])
+    check_main_path(options)
     timings["hlc_init_all"] = time.perf_counter() - t0
 
     run = make_run(options)

@@ -84,6 +84,7 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import threading
@@ -108,6 +109,11 @@ SAT_CHUNK = 8
 # the launcher puts one planning row on each gridDim.y index
 # (csrc/collision.cu resident_grid), whose limit this is
 MAX_ROWS = 65535
+# Most candidates a row: the kernels index a row's candidates in 32-bit
+# ints (a grid-stride loop, offsets into the row in 64 bits), so the
+# stride past the last candidate must stay below 2^31. The centralized
+# search's joint candidates (at most 8,000,000 a layer) are far inside.
+MAX_CANDIDATES = 1 << 30
 # Most candidate vertices one kernel thread holds in registers.
 MAX_VA = 8
 # Most vertices of an obstacle the SAT kernel stages (a half warp each).
@@ -343,8 +349,30 @@ def _crossings_plain(cx, cy, b1x, b1y, sx, sy, ok):
     return hit.any(dim=-1).any(dim=1)
 
 
-def outline_hits_plain(cx, cy, pre: OutlinePre,
-                       live: torch.Tensor | None = None) -> torch.Tensor:
+def _live_only(hits):
+    """A plain version from the hit mask ``hits(cx, cy, pre)`` [V, C]:
+    without ``live`` the hit mask; with ``live`` [V, C] the feasibility
+    ``live & ~hit``, the hits computed only on the candidates live in
+    some row, as a kernel scans only live ones (the mask is the same)."""
+
+    @functools.wraps(hits)
+    def plain(cx, cy, pre, live=None):
+        if live is None:
+            return hits(cx, cy, pre)
+        live = live.bool()
+        cols = live.any(dim=0).nonzero()[:, 0]
+        if cols.numel() == live.shape[1]:
+            return live & ~hits(cx, cy, pre)
+        hit = torch.zeros_like(live)
+        if cols.numel():
+            hit[:, cols] = hits(cx[..., cols], cy[..., cols], pre)
+        return live & ~hit
+
+    return plain
+
+
+@_live_only
+def outline_hits_plain(cx, cy, pre: OutlinePre) -> torch.Tensor:
     """[V, C] bool: a candidate edge crosses a valid edge of an active
     obstacle (with ``live`` [V, C]: ``live & ~hit``). Obstacles are taken 8
     at a time to bound memory, as pdmpc_tpu's candidate_outline_collisions
@@ -360,11 +388,11 @@ def outline_hits_plain(cx, cy, pre: OutlinePre,
         ok = pre.edge_ok[:, o:o + OUTLINE_GROUP].reshape(v, -1) > 0
         hit |= _crossings_plain(cx, cy, b1x.reshape(v, -1),
                                 b1y.reshape(v, -1), sx, sy, ok)
-    return hit if live is None else live.bool() & ~hit
+    return hit
 
 
-def boundary_hits_plain(cx, cy, pre: SegmentsPre,
-                        live: torch.Tensor | None = None) -> torch.Tensor:
+@_live_only
+def boundary_hits_plain(cx, cy, pre: SegmentsPre) -> torch.Tensor:
     """[V, C] bool: a candidate edge crosses an active boundary segment
     (with ``live`` [V, C]: ``live & ~hit``); segments taken 32 at a time to
     bound memory."""
@@ -375,7 +403,7 @@ def boundary_hits_plain(cx, cy, pre: SegmentsPre,
         rows = pre.packed[:, :, s:s + SEG_GROUP]
         hit |= _crossings_plain(cx, cy, rows[:, 2], rows[:, 3], rows[:, 0],
                                 rows[:, 1], pre.mask[:, s:s + SEG_GROUP] > 0)
-    return hit if live is None else live.bool() & ~hit
+    return hit
 
 
 class Lattice(NamedTuple):
@@ -426,8 +454,8 @@ def boundary_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
                                ).reshape(live.shape)
 
 
-def sat_hits_plain(cx, cy, pre: ObstaclesPre,
-                   live: torch.Tensor | None = None) -> torch.Tensor:
+@_live_only
+def sat_hits_plain(cx, cy, pre: ObstaclesPre) -> torch.Tensor:
     """[V, C] bool: a candidate polygon (cx, cy [V, VA, C]) overlaps an
     active obstacle, i.e. no normal of either polygon separates them (with
     ``live`` [V, C]: ``live & ~hit``); obstacles taken SAT_CHUNK at a time
@@ -455,7 +483,7 @@ def sat_hits_plain(cx, cy, pre: ObstaclesPre,
                 | (omn[:, None] - pa.amax(dim=1) > 0)).any(dim=-1)
         active = pre.mask[:, None, o:o + SAT_CHUNK] > 0      # [V, 1, G]
         hit |= (~sep & active).any(dim=-1)
-    return hit if live is None else live.bool() & ~hit
+    return hit
 
 
 def sat_hits_lattice_plain(lat: Lattice, live: torch.Tensor,
@@ -602,6 +630,14 @@ def _candidates(cx, cy, live):
     return dev, v, va, c
 
 
+def check_candidate_count(c: int) -> None:
+    """Raise unless a row's ``c`` candidates fit the kernels' 32-bit
+    candidate index (MAX_CANDIDATES)."""
+    if c > MAX_CANDIDATES:
+        raise ValueError(f"{c} candidates a row exceed the collision "
+                         f"kernels' {MAX_CANDIDATES}")
+
+
 def check_rows(v: int) -> None:
     """Raise unless a launch's ``v`` planning rows fit the kernels' grid:
     each row is one ``gridDim.y`` index, at most MAX_ROWS. Past it no
@@ -659,6 +695,7 @@ def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return outline_hits_plain(cx, cy, pre, live)
+    check_candidate_count(c)
     ptrs, no, vo, cap = _outline_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
@@ -706,6 +743,7 @@ def boundary_hits(cx: torch.Tensor, cy: torch.Tensor, pre: SegmentsPre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return boundary_hits_plain(cx, cy, pre, live)
+    check_candidate_count(c)
     ptrs, s_pad, cap = _segment_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
@@ -754,6 +792,7 @@ def sat_hits(cx: torch.Tensor, cy: torch.Tensor, pre: ObstaclesPre,
     dev, v, va, c = _candidates(cx, cy, live)
     if dev < 0:
         return sat_hits_plain(cx, cy, pre, live)
+    check_candidate_count(c)
     ptrs, no, vo, cap = _obstacle_ptrs(pre, v, dev)
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:

@@ -153,6 +153,14 @@ class PlanResult(NamedTuple):
     n_expanded: torch.Tensor    # [V] i64 — feasible candidates, all layers
 
 
+def stable_top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of ``x`` along its last dim and their
+    indices, ties to the lower index first, as ``lax.top_k`` (a stable
+    descending sort; ``torch.topk`` does not promise the tie order)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def _cost_to_go(pos, ref_points, v_ref, k_child: int, dt: float):
     """Admissible cost-to-go (expand_node.m:63-73) of positions
     ``pos`` [V, ..., 2] after step ``k_child``: sum over future steps i of
@@ -272,13 +280,9 @@ def plan_trajectory(
                                    dim=-1).reshape(v, -1, 3)
             new_g = g_child.reshape(v, -1)
         else:
-            # top-k with lower-index-first ties, as lax.top_k: a stable
-            # descending sort of the negated score
             score = torch.where(feasible, g_child + h_child,
                                 torch.full_like(g_child, math.inf))
-            neg, flat_idx = torch.sort(-score.reshape(v, -1), dim=-1,
-                                       descending=True, stable=True)
-            neg, flat_idx = neg[:, :b_out], flat_idx[:, :b_out]
+            neg, flat_idx = stable_top_k(-score.reshape(v, -1), b_out)
             parent = flat_idx // n
             child_trim = flat_idx % n
             new_valid = neg > -math.inf

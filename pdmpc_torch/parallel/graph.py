@@ -227,15 +227,17 @@ def _greedy_cut_one(weighted_directed: torch.Tensor,
 
 
 def weak_components(directed: torch.Tensor) -> torch.Tensor:
-    """Weakly-connected component labels [N] i64: each vertex carries the
+    """Weakly-connected component labels [..., N] i64 of graphs
+    [..., N, N] (leading dims batch scenarios): each vertex carries the
     smallest vertex index of its component (min-label propagation; the
     conncomp of PrioritizedExplorativeController.m:206)."""
-    n = directed.shape[0]
-    sym = directed.bool() | directed.bool().T
-    labels = torch.arange(n, device=directed.device)
+    n = directed.shape[-1]
+    sym = directed.bool() | directed.bool().mT
+    labels = torch.arange(n, device=directed.device).expand(
+        directed.shape[:-1])
     for _ in range(n):
-        neigh = torch.where(sym, labels[None, :], n)
-        labels = torch.minimum(labels, neigh.amin(dim=1))
+        neigh = torch.where(sym, labels[..., None, :], n)
+        labels = torch.minimum(labels, neigh.amin(dim=-1))
     return labels
 
 

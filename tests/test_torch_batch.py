@@ -14,8 +14,9 @@ port's own single runs.
 - The merged schedule, on random DAGs, plans each scenario's rows in its
   own ``compact_schedule`` order and every vehicle once.
 - ``run_experiment_batch`` of one scenario equals ``run_experiment``; the
-  voting modes refuse a batch of more than one scenario; the kernels'
-  row guard refuses more rows than their grid holds without launching.
+  voting modes, in a batch and in a sweep of two scenarios, plan each
+  entry as its run alone; the kernels' row guard refuses more rows than
+  their grid holds without launching.
 
 The cr6 cells run in tests/test_torch_batch_cr6_coloring.py and
 tests/test_torch_batch_cr6_random.py, a worker each.
@@ -282,13 +283,28 @@ def test_corridor_clip_in_passes_equals_one_pass(monkeypatch):
                                       P.explorative_priority])
 @pytest.mark.parametrize("entry", ["batch", "sweep"])
 def test_voting_refused_past_one_scenario(priority, entry):
+    """Voting past one scenario, refused until the voting modes were
+    batched, now runs: each entry of a batch (identical starts) or a sweep
+    (starts shifted 1 m) of two circle-3 scenarios equals its scenario
+    planned alone."""
     cfg = tc.Config(scenario_type=S.circle, amount=3, T_end=0.4,
-                    beam_width=8, priority=priority)
-    with pytest.raises(NotImplementedError, match=priority.value):
-        if entry == "batch":
-            run_experiment_batch(cfg, n_scenarios=2, device="cpu")
-        else:
-            monte_carlo_sweep(cfg, 2, ARC, device="cpu")
+                    beam_width=8, priority=priority).validate()
+    mpa = build_mpa(cfg)
+    mpa_t = mpa.to_tensors_for(cfg, "cpu")
+    sc_t = create_scenario(cfg, mpa).to_tensors("cpu")
+    if entry == "batch":
+        got = run_experiment_batch(cfg, n_scenarios=2, device="cpu").infos
+        states = perturbed_states(sc_t, cfg, 2)
+    else:
+        got = monte_carlo_sweep(cfg, 2, ARC, device="cpu").infos
+        states = perturbed_states(sc_t, cfg, 2, ARC)
+    assert got.cost.shape == (2, cfg.k_end, 3)
+    for i in range(2):
+        _, alone = make_run(cfg)(StepState(*(x[i:i + 1] for x in states)),
+                                 mpa_t, sc_t)
+        bad = [f for f, a, x in zip(alone._fields, alone, got)
+               if not torch.equal(a[0], torch.as_tensor(x[i]))]
+        assert bad == [], (i, bad)
 
 
 def test_kernel_row_guard_refuses_before_launching(monkeypatch):

@@ -68,11 +68,12 @@ def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
 @pytest.mark.parametrize("what", ["random_priority", "random_weight",
                                   "sampled", "hdv", "centralized",
                                   "computation_mode"])
-def test_unported_config_raises(what):
-    """Human-driven vehicles, centralized planning and the parallel
-    computation mode are not ported yet: the entry point refuses them.
-    Random priorities and weights and the sampled optimizer, ported since,
-    pass the same check and build a step."""
+def test_unported_config_raises(what, monkeypatch):
+    """The parallel computation mode is not ported yet: the entry point
+    refuses it. Random priorities and weights, the sampled optimizer and
+    human-driven vehicles, ported since, pass the same check and build a
+    prioritized step; centralized planning passes it and ``make_run``
+    builds its run on ``make_centralized_step``."""
     from pdmpc_torch import (
         ComputationMode,
         Config,
@@ -81,7 +82,12 @@ def test_unported_config_raises(what):
         PriorityStrategies,
         WeightStrategies,
     )
-    from pdmpc_torch.controller import check_main_path, make_prioritized_step
+    from pdmpc_torch import controller as ctl
+    from pdmpc_torch.controller import (
+        StepState,
+        check_main_path,
+        make_prioritized_step,
+    )
     from pdmpc_torch.experiment import create_scenario, run_experiment
     from pdmpc_torch.models.mpa import build_mpa
 
@@ -91,9 +97,8 @@ def test_unported_config_raises(what):
         "random_weight": (dict(weight=WeightStrategies.random_weight), None),
         "sampled": (dict(optimizer_type=OptimizerType.TpuSampled), None),
         "hdv": (dict(manual_control_config=ManualControlConfig(
-            is_active=True, amount=1, hdv_ids=(0,))),
-                "human-driven vehicles"),
-        "centralized": (dict(is_prioritized=False), "centralized planning"),
+            is_active=True, amount=1, hdv_ids=(0,))), None),
+        "centralized": (dict(is_prioritized=False), None),
         "computation_mode": (dict(
             computation_mode=ComputationMode.parallel_physically),
             "computation_mode=parallel_physically"),
@@ -104,8 +109,26 @@ def test_unported_config_raises(what):
         check_main_path(cfg)
         mpa = build_mpa(cfg)
         scenario = create_scenario(cfg, mpa).to_tensors("cpu")
-        assert callable(make_prioritized_step(
-            cfg, mpa.to_tensors_for(cfg, "cpu"), scenario))
+        mpa_t = mpa.to_tensors_for(cfg, "cpu")
+        if what == "centralized":
+            built = []
+
+            def spy(*args):
+                built.append(args)
+                raise StopIteration
+
+            monkeypatch.setattr(ctl, "make_centralized_step", spy)
+            monkeypatch.setattr(ctl, "make_prioritized_step", None)
+            state0 = ctl.initial_state(scenario, cfg.Hp)
+            with pytest.raises(StopIteration):
+                ctl.make_run(cfg)(StepState(*(x[None] for x in state0)),
+                                  mpa_t, scenario)
+            assert [tuple(map(id, a)) for a in built] == [
+                (id(cfg), id(mpa_t), id(scenario))]
+            return
+        if what == "hdv":
+            assert scenario.is_hdv.tolist() == [True, False, False]
+        assert callable(make_prioritized_step(cfg, mpa_t, scenario))
         return
     with pytest.raises(NotImplementedError, match=match):
         run_experiment(cfg, device="cpu")

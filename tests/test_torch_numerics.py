@@ -14,6 +14,11 @@ placement does not.
 prints the counts at 10^5 inputs an expression, and beside them the
 places where no placement can match: XLA:CPU's vectorized f32 square
 root, cosine and sine against torch's.
+
+XLA fuses by context: each expression is jitted alone and returns only
+its result, and a step index that the reference's layer scan carries is
+traced here too (the centralized heuristic's sum of squares, with a
+constant step, fuses its squares; under the scan it rounds them).
 """
 
 import json
@@ -176,6 +181,177 @@ def expressions(n, seed=0):
         "fma(ax, x, ay*y)": fma_exact(*np.broadcast_arrays(ax, px, ayy)),
         "rounded": rounded(axx.astype(np.float64) + ayy),
     })
+    out.update(centralized_expressions(rng, m))
+    out.update(hdv_expressions(rng, m))
+    return out
+
+
+def add(a, b):
+    return rounded(np.asarray(a, dtype=np.float64) + b)
+
+
+def mul(a, b):
+    return rounded(np.asarray(a, dtype=np.float64) * b)
+
+
+def rotated_placements(c, s, px, py, x0, port_name):
+    """x = c * px - s * py + x0 in its placements, the port's (fused on
+    the c term) first."""
+    sp, cp = mul(s, py), mul(c, px)
+    return {
+        port_name: add(port_fma(c, px, -sp), x0),
+        "fma(-s, py, c*px) + x": add(fma_exact(*np.broadcast_arrays(
+            -s, py, cp)), x0),
+        "rounded": add(add(cp, -sp), x0),
+    }
+
+
+def square_sums(order, terms, fused=True):
+    """Sums of squares of ``terms[name]`` in ``order``, one accumulator:
+    each square fused in, ``acc = fma(z, z, acc)``, or rounded and
+    added."""
+    acc = None
+    for name in order:
+        z = terms[name]
+        acc = (mul(z, z) if acc is None else fma_exact(z, z, acc) if fused
+               else add(acc, mul(z, z)))
+    return acc
+
+
+def centralized_expressions(rng, m):
+    """The joint search's new multiply-adds and sums
+    (ops/search_centralized.py :105-125, :245-246) on [B, T, N] shapes."""
+    out = {}
+    b_, t_, n_, hp, k = max(m // 40, 1), 40, 3, 6, 1
+    c = rng.uniform(-1, 1, (b_, 1, n_)).astype(F32)
+    s = rng.uniform(-1, 1, (b_, 1, n_)).astype(F32)
+    mdx = rng.normal(0, 0.2, (b_, t_, n_)).astype(F32)
+    mdy = rng.normal(0, 0.2, (b_, t_, n_)).astype(F32)
+    px = rng.uniform(0, 4.5, (b_, 1, n_)).astype(F32)
+    ref = rng.uniform(0, 4, (n_, hp, 2)).astype(F32)
+    g = rng.uniform(0, 3, (b_,)).astype(F32)
+    d_max = np.cumsum(rng.uniform(0, 0.2, (n_, hp)), axis=-1).astype(F32)
+    future = np.arange(hp) > k
+
+    # one jitted function an expression, each returning only its own
+    # result: what else a program returns moves XLA's fusion (a returned
+    # ``short`` is rounded before the sum of squares reads it)
+    jcx = np.asarray(jax.jit(lambda c, s, mdx, mdy, px: c * mdx - s * mdy
+                             + px)(c, s, mdx, mdy, px))
+    jcy = jcx[..., ::-1].copy()
+
+    def step_cost(g, x, y, ref):
+        dxr = x - ref[None, None, :, k, 0]
+        dyr = y - ref[None, None, :, k, 1]
+        return g[:, None] + jnp.sum(dxr ** 2 + dyr ** 2, axis=-1)
+
+    def distance(x, y, ref):
+        return jnp.sqrt((x[..., None] - ref[None, None, :, :, 0]) ** 2
+                        + (y[..., None] - ref[None, None, :, :, 1]) ** 2)
+
+    def heuristic(x, y, ref, d_max, k):
+        # the step index is traced, as in the reference's layer scan (a
+        # constant one folds the mask and fuses the squares instead)
+        fut = jnp.arange(hp) > k
+        short = jnp.maximum(0.0, distance(x, y, ref) - d_max[None, None])
+        return jnp.sum(jnp.where(fut[None, None, None], short ** 2, 0.0),
+                       axis=(-1, -2))
+
+    jg = np.asarray(jax.jit(step_cost)(g, jcx, jcy, ref))
+    jdist = np.asarray(jax.jit(distance)(jcx, jcy, ref))
+    jh = np.asarray(jax.jit(heuristic)(jcx, jcy, ref, d_max, k))
+    jshort = np.maximum(rounded(jdist.astype(np.float64) - d_max), F32(0))
+    out["centralized child x = c*mdx - s*mdy + x"] = (jcx, rotated_placements(
+        c, s, mdx, mdy, px, "port: fma(c, mdx, -(s*mdy)) + x"))
+
+    dxr = jcx - ref[None, None, :, k, 0]
+    dyr = jcy - ref[None, None, :, k, 1]
+    terms = {f"{a}{i}": z[..., i] for i in range(n_)
+             for a, z in (("dx", dxr), ("dy", dyr))}
+    gb = g[:, None]
+    out["centralized step cost g + sum_v((x-rx)**2 + (y-ry)**2)"] = (jg, {
+        "port: g + acc, acc = fma(dx, dx, fma(dy, dy, acc))": add(
+            gb, square_sums([f"{a}{i}" for i in range(n_)
+                             for a in ("dy", "dx")], terms)),
+        "g + sum_v fma(dy, dy, dx*dx)": add(gb, add(add(*(
+            fma_exact(terms[f"dy{i}"], terms[f"dy{i}"],
+                      mul(terms[f"dx{i}"], terms[f"dx{i}"]))
+            for i in range(2))), fma_exact(terms["dy2"], terms["dy2"],
+                                           mul(terms["dx2"], terms["dx2"])))),
+        "g + acc, dx before dy": add(gb, square_sums(
+            [f"{a}{i}" for i in range(n_) for a in ("dx", "dy")], terms)),
+    })
+
+    ex = jcx[..., None] - ref[:, :, 0]
+    ey = jcy[..., None] - ref[:, :, 1]
+    out["centralized heuristic sqrt((x-rx)**2 + (y-ry)**2)"] = (jdist, {
+        "port: sqrt(fma(ex, ex, ey*ey))": np.sqrt(port_fma(ex, ex,
+                                                           mul(ey, ey))),
+        "sqrt(fma(ey, ey, ex*ex))": np.sqrt(fma_exact(ey, ey, mul(ex, ex))),
+        "rounded": np.sqrt(add(mul(ex, ex), mul(ey, ey))),
+    })
+    shorts = {(i, j): jshort[..., i, j] for i in range(n_)
+              for j in range(hp)}
+    fut = [j for j in range(hp) if future[j]]
+    by_vehicle = [(i, j) for i in range(n_) for j in fut]
+    out["centralized heuristic sum over (N, Hp) of short**2"] = (jh, {
+        "port: rounded squares, vehicle by vehicle, step by step":
+            square_sums(by_vehicle, shorts, fused=False),
+        "rounded squares, step by step": square_sums(
+            [(i, j) for j in fut for i in range(n_)], shorts, fused=False),
+        "fused, vehicle by vehicle": square_sums(by_vehicle, shorts),
+    })
+
+    # the backtracked path's swept areas [Hp, N, VA]
+    cps = rng.uniform(-1, 1, (m, n_, 1)).astype(F32)
+    sps = rng.uniform(-1, 1, (m, n_, 1)).astype(F32)
+    ax = rng.normal(0, 0.2, (m, n_, 4)).astype(F32)
+    ay = rng.normal(0, 0.1, (m, n_, 4)).astype(F32)
+    ppx = rng.uniform(0, 4.5, (m, n_, 1)).astype(F32)
+    jsx = np.asarray(jax.jit(lambda c, s, ax, ay, p: c * ax - s * ay + p)(
+        cps, sps, ax, ay, ppx))
+    out["centralized backtracked shape x = c*ax - s*ay + x"] = (
+        jsx, rotated_placements(cps, sps, ax, ay, ppx,
+                                "port: fma(c, ax, -(s*ay)) + x"))
+    return out
+
+
+def hdv_expressions(rng, m):
+    """The HDV step's new multiply-adds: the shapes of the HDV apply
+    (``_occupied_area`` of the reference poses) and the heading test of
+    the directional coupling (is_hdv_behind.m). Each placement reads
+    XLA's own cosines and sines, so only the placement is compared."""
+    from pdmpc_tpu import controller as jctl
+
+    out = {}
+    poses = np.concatenate([rng.uniform(0, 4.5, (m, 2)),
+                            rng.uniform(-np.pi, np.pi, (m, 1))],
+                           axis=-1).astype(F32)
+    js = np.asarray(jax.jit(jax.vmap(lambda p: jctl._occupied_area(
+        p, 0.03)))(poses))                                  # [m, 4, 2]
+    jcos, jsin = (np.asarray(jax.jit(f)(poses[:, 2]))[:, None]
+                  for f in (jnp.cos, jnp.sin))
+    local = np.asarray(jctl.geo.transformed_rectangle(
+        0.0, 0.0, 0.0, jctl.VEHICLE_LENGTH + 0.06,
+        jctl.VEHICLE_WIDTH + 0.06))                         # [4, 2]
+    lx, ly = local[None, :, 0], local[None, :, 1]
+    out["HDV shape x = c*lx - s*ly + x"] = (js[..., 0], rotated_placements(
+        jcos, jsin, lx, ly, poses[:, 0:1], "port: fma(c, lx, -(s*ly)) + x"))
+
+    n = max(int(m ** 0.5), 2)
+    pg = poses[:n]
+    jscal = np.asarray(jax.jit(lambda p: jnp.sum(
+        jnp.stack([jnp.cos(p[:, 2]), jnp.sin(p[:, 2])], -1)[None]
+        * (p[None, :, :2] - p[:, None, :2]), axis=-1))(pg))
+    vec = pg[None, :, :2] - pg[:, None, :2]
+    hx, hy = (np.broadcast_to(h[None, :n, 0], vec.shape[:2])
+              for h in (jcos, jsin))
+    vx, vy = vec[..., 0], vec[..., 1]
+    out["HDV behind heading . (hdv - cav)"] = (jscal, {
+        "port: fma(hy, vy, hx*vx)": port_fma(hy, vy, mul(hx, vx)),
+        "fma(hx, vx, hy*vy)": fma_exact(hx, vx, mul(hy, vy)),
+        "rounded": add(mul(hx, vx), mul(hy, vy)),
+    })
     return out
 
 
@@ -195,6 +371,18 @@ def ulp_sources(n, seed=0):
     return counts
 
 
+# the centralized search's and the HDV step's expressions
+CENTRALIZED_AND_HDV = [
+    "centralized child x = c*mdx - s*mdy + x",
+    "centralized step cost g + sum_v((x-rx)**2 + (y-ry)**2)",
+    "centralized heuristic sqrt((x-rx)**2 + (y-ry)**2)",
+    "centralized heuristic sum over (N, Hp) of short**2",
+    "centralized backtracked shape x = c*ax - s*ay + x",
+    "HDV shape x = c*lx - s*ly + x",
+    "HDV behind heading . (hdv - cav)",
+]
+
+
 @pytest.fixture(scope="module")
 def forms():
     return expressions(20_000)
@@ -206,7 +394,8 @@ def forms():
                                   "SAT projection einsum",
                                   "FCA SAT projection matmul",
                                   "rollout logits -sum((fan - ref)**2) / T",
-                                  "rollout cost g + fan_d2[child]"])
+                                  "rollout cost g + fan_d2[child]",
+                                  *CENTRALIZED_AND_HDV])
 def test_port_placement_matches_xla(forms, name):
     want, placements = forms[name]
     want = np.asarray(want)

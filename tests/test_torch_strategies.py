@@ -11,7 +11,9 @@ on the same inputs (made from numpy seeds):
 - twins of tests/test_priority_modes.py's TestOptimalEquivalence and
   TestExplorativeVoteNumerics: the same fake ``solve`` fed through the JAX
   function and its port gives equal costs, chosen rows, priorities,
-  directed couplings, sequential graphs and levels.
+  directed couplings, sequential graphs and levels. The port votes a
+  batch of scenarios; these cases give it a batch of one
+  (``one_scenario``).
 """
 
 import enum
@@ -48,6 +50,22 @@ def configs(**kw):
                     if isinstance(v, enum.Enum) else v)
                 for k, v in kw.items()}
     return tc.Config(**conv(tc)), jc.Config(**conv(jc))
+
+
+def batch_of_one(solve):
+    """A one-scenario fake ``solve`` as the port's batched vote calls it:
+    ``solve(directed [1, N, N], scenarios)``, results with the scenario
+    dim."""
+    def call(directed_p, scenarios=None):
+        planned, shapes, sequential, levels = solve(directed_p[0])
+        return (TPlan(*(x[None] for x in planned)), shapes[None],
+                sequential[None], levels[None])
+    return call
+
+
+def one_scenario(voted):
+    """The port's vote of a batch of one without the scenario dim."""
+    return (TPlan(*(x[0] for x in voted[0])), *(x[0] for x in voted[1:]))
 
 
 def convex_polys(rng, n, hp, k=8):
@@ -219,14 +237,15 @@ def test_vote_order_unmapped_shape_warns(p_cnt, n):
             tg.kahn_levels(directed_p)[0]
 
     comm = TComm(n)
-    belonging = torch.zeros((n,), dtype=torch.int64)
+    belonging = torch.zeros((1, n), dtype=torch.int64)
     for rows in (p_cnt, 2):
-        stack = torch.zeros((rows, n, n), dtype=torch.bool)
-        invalid = torch.zeros((rows, n), dtype=torch.bool)
+        stack = torch.zeros((rows, 1, n, n), dtype=torch.bool)
+        invalid = torch.zeros((rows, 1, n), dtype=torch.bool)
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            tctl._vote_per_subgraph(comm, solve, stack, belonging, invalid,
-                                    solve_rows=range(1))
+            tctl._vote_per_subgraph(comm, batch_of_one(solve), stack,
+                                    belonging, invalid,
+                                    [[0]] + [[]] * (rows - 1))
         said = [w for w in caught if "summation order" in str(w.message)]
         assert bool(said) == (not tctl.vote_order_mapped(rows, n)), (rows, n)
         assert bool(said) == (rows > 256 or n > 64), (rows, n)
@@ -288,8 +307,9 @@ class TestOptimalEquivalence:
                              amount=max(n, 2), max_priority_permutations=16)
         want = jctl._solve_optimal(jcfg, JComm(n), solve_j,
                                    jnp.asarray(adj_np))
-        got = tctl._solve_optimal(tcfg, TComm(n), solve_t,
-                                  torch.as_tensor(adj_np))
+        got = one_scenario(tctl._solve_optimal(
+            tcfg, TComm(n), batch_of_one(solve_t),
+            torch.as_tensor(adj_np)[None]))
         assert_votes_equal(got, want)
 
         best = np.inf
@@ -323,8 +343,9 @@ class TestOptimalEquivalence:
             w = (rng.integers(7, 128, size=(n, n)) / 64.0).astype(F32)
             solve_j, solve_t = _fake_solves(n, w)
             tcfg, jcfg = configs(amount=n, max_priority_permutations=16)
-            got = tctl._solve_optimal(tcfg, TComm(n), solve_t,
-                                      torch.as_tensor(adj))
+            got = one_scenario(tctl._solve_optimal(
+                tcfg, TComm(n), batch_of_one(solve_t),
+                torch.as_tensor(adj)[None]))
         want = jctl._solve_optimal(jcfg, JComm(n), solve_j, jnp.asarray(adj))
         assert_votes_equal(got, want)
 
@@ -374,9 +395,9 @@ class TestExplorativeVoteNumerics:
         want = jctl._solve_explorative(
             jcfg, JComm(n), solve_j, jnp.asarray(seq0), jnp.asarray(seq0),
             jnp.asarray(levels0, dtype=jnp.int32), 2)
-        got = tctl._solve_explorative(
-            tcfg, TComm(n), solve_t, torch.as_tensor(seq0),
-            torch.as_tensor(seq0), torch.as_tensor(levels0), 2)
+        got = one_scenario(tctl._solve_explorative(
+            tcfg, TComm(n), batch_of_one(solve_t), torch.as_tensor(seq0)[None],
+            torch.as_tensor(seq0)[None], torch.as_tensor(levels0)[None], 2))
         np.testing.assert_array_equal(got[6].numpy(), [1, 1, 1, 1])
         assert torch.isfinite(got[0].cost).all()
         assert_votes_equal(got, want)
@@ -398,10 +419,9 @@ def test_explorative_solves_only_valid_shifts():
 
     empty = np.zeros((n, n), dtype=bool)
     levels0 = np.ones(n, dtype=np.int64)
-    got = tctl._solve_explorative(tcfg, TComm(n), counting,
-                                  torch.as_tensor(empty),
-                                  torch.as_tensor(empty),
-                                  torch.as_tensor(levels0), n)
+    got = one_scenario(tctl._solve_explorative(
+        tcfg, TComm(n), batch_of_one(counting), torch.as_tensor(empty)[None],
+        torch.as_tensor(empty)[None], torch.as_tensor(levels0)[None], n))
     want = jctl._solve_explorative(
         jcfg, JComm(n), solve_j, jnp.asarray(empty), jnp.asarray(empty),
         jnp.asarray(levels0, dtype=jnp.int32), n)
