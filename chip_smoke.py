@@ -117,7 +117,21 @@ Phases, any failure exits non-zero:
    (f) optimal and explorative voting in a batch, cr20 at beam 256, 5
    steps, ``monte_carlo_sweep`` of 4 scenarios (1 m of arc): every entry
    equal to its run alone in every field, the batch's step median and
-   vehicle-solves/s printed against the four single runs'.
+   vehicle-solves/s printed against the four single runs';
+18. the parallel computation modes, vehicles sharded over the ranks of a
+   ``torch.distributed`` group (``MeshComm``, the dense level loop): (a)
+   phase 3's run under ``make_sharded_run`` on one rank, NCCL; (b) the
+   same through ``python -m pdmpc_torch.parallel.multihost`` in two
+   processes sharing the card, gloo (NCCL refuses two ranks on one card),
+   the (1, 2) mesh ``main`` picks, rank 0's saved result read back; (c)
+   phase 5's circle on a (2, 2) mesh of four processes, two identical
+   starts, and rank 0's widest dense level planned with kernels and with
+   plain versions, every SAT call of it held bit for bit and timed; each
+   equal to its sequential run (phase 3 or 5) in every record, with
+   launches a step on each rank and step medians printed; (d) the
+   vehicle group's collectives timed on each backend (the traffic
+   bundle's gather, one level's areas, the voting costs' psum) and
+   ``python -m pdmpc_torch.parallel.scaling --device cuda --ranks 2``.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -131,7 +145,9 @@ phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
 circle), ``path_centralized`` (boundary: phase 17e's first step), ``oversize``
 (phase 13, per size and budget), ``launches_per_step`` and
 ``launches_by_path`` (launches, launches a step and lattice-form launches
-of every driven run of phases 3, 5 and 9 to 17); for SAT also ``lattice``
+of every driven run of phases 3, 5 and 9 to 18; a sharded run's summed
+over its ranks); for SAT also ``path_sharded`` (phase 18c's level) and
+``lattice``
 (phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
 and device ms of one step's threefry noise at cr20's sampled shape).
 """
@@ -733,14 +749,23 @@ def step_line(res, launches):
                 f"{k} {v / res.n_steps:.2f}" for k, v in launches.items()))
 
 
+def counts(coll):
+    """Every kernel's and lattice form's launch counter."""
+    return {name: getattr(coll, name).launches for name in KERNELS + FORMS}
+
+
+def zero_counts(coll):
+    for name in KERNELS + FORMS:
+        getattr(coll, name).launches = 0
+
+
 def counted_run(coll, run_experiment, cfg, label, launched, lattice=None):
     """Run ``cfg`` on the card with every launch counter zeroed first;
     require the kernels in ``launched`` to launch and the others not to,
     and, where ``lattice`` is given, their lattice forms to launch (True)
     or not (False: the sampled search's (cx, cy) forms only). Returns
     (launch counts, result); each form's count stays on its counter."""
-    for name in KERNELS + FORMS:
-        getattr(coll, name).launches = 0
+    zero_counts(coll)
     res = run_experiment(cfg, device="cuda")
     launches = {name: getattr(coll, name).launches for name in KERNELS}
     forms = {name: getattr(coll, name).launches for name in FORMS}
@@ -1631,6 +1656,233 @@ def voting_batch(torch, coll, Config, card, record):
               flush=True)
 
 
+def record_counts(by_path, label, launched, n_steps):
+    """Phase 18's rows of ``launches_by_path``: ``launched`` holds the
+    counts of every kernel and form over the run's ranks."""
+    for name in KERNELS:
+        by_path[name][label] = {
+            "launches": launched[name],
+            "per_step": launched[name] / n_steps,
+            "lattice_launches": launched[name + "_lattice"]}
+
+
+def sharded_block_run(cfg, mesh_shape, batch, step_seconds=None):
+    """The records of ``cfg`` under ``make_sharded_run`` on a mesh of the
+    initialized group's ranks, each rank's block of ``batch`` identical
+    starts; every rank returns the whole batch [B, k, N, ...] as numpy."""
+    from pdmpc_torch.parallel import sharded
+
+    cfg, mpa_t, sc_t = batch_tensors(cfg)
+    mesh = sharded.make_mesh(*mesh_shape)
+    run = sharded.make_sharded_run(cfg, mpa_t, sc_t, mesh)
+    states = sharded.place_batched_state(
+        sharded.batched_initial_state(sc_t, cfg.Hp, batch), mesh)
+    _, infos = run(states, mpa_t, sc_t, step_seconds)
+    return type(infos)(*(x.cpu().numpy() for x in infos))
+
+
+def hold_entries(infos, ref, label, batch):
+    """Raise unless every entry of the batch ``infos`` equals the single
+    run ``ref`` in every record."""
+    for b in range(batch):
+        bad = differing_fields(type(infos)(*(x[b] for x in infos)),
+                               ref.infos)
+        if bad:
+            raise AssertionError(f"{label}: entry {b} differs from the "
+                                 f"sequential run in {bad}")
+
+
+def collective_ms(device, reps=20):
+    """18d, on every rank of the initialized group: host ms (the work
+    synchronized) of the vehicle group's collectives at cr20's shapes, as
+    tests/_multihost_worker.py times the JAX package's: ``gather_tree`` of
+    the traffic bundle, ``gather_veh`` of one level's planned areas, and
+    ``psum`` of the 16 optimal-voting costs of every vehicle."""
+    import torch
+    import torch.distributed as dist
+
+    from pdmpc_torch import Config
+    from pdmpc_torch.models.mpa import build_mpa
+    from pdmpc_torch.parallel.comm import MeshComm
+    from pdmpc_torch.scenarios.scenario import VO
+
+    cfg = Config(amount=20).validate()
+    k = build_mpa(cfg).to_tensors_for(cfg, device).local_reachable_sets
+    hp, k = k.shape[1], k.shape[2]
+    comm = MeshComm(cfg.amount)
+    nl = comm.n_local
+
+    def f32(*shape):
+        return torch.rand((1, nl, *shape), device=device)
+
+    traffic = (f32(3), torch.zeros((1, nl), dtype=torch.int64, device=device),
+               f32(hp, k, 2), f32(hp, 2), f32(4, 2), f32(hp, VO, 2),
+               torch.ones((1, nl), dtype=torch.bool, device=device),
+               torch.zeros((1, nl, 8), dtype=torch.int64, device=device))
+    level, costs = f32(hp, VO, 2), f32(16)
+    out = {"backend": dist.get_backend(), "ranks": dist.get_world_size(),
+           "device": str(device),
+           "traffic_floats_a_vehicle": sum(x[0, 0].numel() for x in traffic)}
+    for name, fn in (("all_gather_traffic", lambda: comm.gather_tree(traffic)),
+                     ("all_gather_level", lambda: comm.gather_veh(level)),
+                     ("psum_costs", lambda: comm.psum(costs))):
+        for _ in range(3):
+            fn()
+        dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name + "_ms"] = (time.perf_counter() - t0) / reps * 1e3
+        del r
+    return out
+
+
+def sharded_circle_rank(device):
+    """18c, one rank of four: phase 5's circle-10 (40 steps) on a (2, 2)
+    mesh, two identical starts; then a recorded run of the first 15 steps
+    in which rank 0 plans the dense level with the most vehicles (then the
+    most active obstacles) again with the kernels and with their plain
+    versions, and holds and times every SAT call of that plan. Returns
+    the records, the launches of the first run and rank 0's path rows."""
+    import torch
+    import torch.distributed as dist
+
+    from pdmpc_torch import Config, ScenarioType
+    from pdmpc_torch.ops import collision as coll
+
+    circle = Config(scenario_type=ScenarioType.circle, amount=10, T_end=8.0)
+    zero_counts(coll)
+    step_seconds = []
+    infos = sharded_block_run(circle, (2, 2), 2, step_seconds)
+    launched = counts(coll)
+
+    def sharded_run(cfg, device):
+        sharded_block_run(cfg, (2, 2), 2)
+
+    rows = {"sat_hits": {}}
+    short = replace(circle, T_end=3.0)
+    if dist.get_rank() == 0:
+        calls = plans_with_plain_versions(
+            torch, coll, sharded_run, short, "sharded circle level",
+            rank=lambda args, kw: (args[1].shape[0], active_slots(args, kw)))
+        path_shapes(torch, coll, calls, rows, ("sat_hits",),
+                    "sharded circle level", row_key="path_sharded")
+    else:
+        sharded_run(short, device)
+    return {"infos": infos, "launches": launched,
+            "step_seconds": step_seconds, "rows": rows}
+
+
+def distributed_modes(torch, coll, Config, card, by_path, rows, road_res,
+                      circle_res):
+    """Phase 18: the parallel computation modes on the card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pdmpc_torch.experiment import ExperimentResult
+    from pdmpc_torch.parallel import multihost
+
+    road = Config(amount=20, T_end=4.0)
+    road_ms = np.median(road_res.timings["step_seconds"]) * 1e3
+    # ---- 18a: the dense level loop on one rank, NCCL --------------------
+    multihost.initialize_distributed(f"127.0.0.1:{multihost.free_port()}",
+                                     1, 0, "nccl", "cuda")
+    try:
+        zero_counts(coll)
+        step_seconds = []
+        infos = sharded_block_run(road, (1, 1), 1, step_seconds)
+        launched = counts(coll)
+        nccl = collective_ms(torch.device("cuda"))
+    finally:
+        dist.destroy_process_group()
+    hold_entries(infos, road_res, "18a sharded road (1, 1) nccl", 1)
+    n_steps = road_res.n_steps
+    record_counts(by_path, "sharded road 1x1 nccl", launched, n_steps)
+    print(f"18a sharded road, mesh (1, 1), NCCL ({card}): equal to phase "
+          f"3's run in every record; step median "
+          f"{np.median(step_seconds) * 1e3:.3f} ms (phase 3 "
+          f"{road_ms:.3f} ms); launches per step "
+          + ", ".join(f"{k} {launched[k] / n_steps:.2f}" for k in KERNELS),
+          flush=True)
+    # ---- 18b: two processes on the card through the multihost entry ----
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   PDMPC_RESULTS_DIR=os.path.join(tmp, "results"))
+        address = f"127.0.0.1:{multihost.free_port()}"
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "pdmpc_torch.parallel.multihost",
+             "--coordinator", address, "--num-processes", "2",
+             "--process-id", str(i), "--backend", "gloo", "--device",
+             "cuda", "--", "--amount", "20", "--t-end", "4.0"], cwd=tmp,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for i, (p, out) in enumerate(zip(procs, outs)):
+            print(f"18b rank {i}: " + " | ".join(out.strip().splitlines()[
+                -2:]), flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"18b rank {i} failed:\n{out[-3000:]}")
+        saved = [os.path.join(d, f) for d, _, files in os.walk(tmp)
+                 for f in files if f.endswith(".json")
+                 and f != "Config.json"]
+        res = ExperimentResult.load(saved[0][:-len(".json")])
+    bad = differing_fields(res.infos, road_res.infos)
+    if len(saved) != 1 or bad or res.timings["mesh"] != [1, 2]:
+        raise AssertionError(f"18b: {len(saved)} results, mesh "
+                             f"{res.timings['mesh']}, differing {bad}")
+    launched = {k: sum(r[k] for r in res.timings["launches_by_rank"])
+                for k in KERNELS + FORMS}
+    record_counts(by_path, "sharded road 1x2 gloo", launched, n_steps)
+    print(f"18b sharded road, mesh (1, 2), 2 processes on one card, gloo "
+          f"({card}): equal to phase 3's run in every record; step median "
+          f"{np.median(res.timings['step_seconds']) * 1e3:.3f} ms (phase 3 "
+          f"{road_ms:.3f} ms); launches per step and rank "
+          + "; ".join(", ".join(f"{k} {r[k] / n_steps:.2f}" for k in KERNELS)
+                      for r in res.timings["launches_by_rank"]), flush=True)
+    # ---- 18c: four ranks, B = 2, the circle; one level with plain ------
+    ranks = multihost.spawn(sharded_circle_rank, 4, backend="gloo",
+                            device="cuda", timeout=600)
+    for i, r in enumerate(ranks):
+        hold_entries(r["infos"], circle_res, f"18c rank {i}", 2)
+    launched = {k: sum(r["launches"][k] for r in ranks)
+                for k in KERNELS + FORMS}
+    n_steps = circle_res.n_steps
+    record_counts(by_path, "sharded circle 2x2 gloo", launched, n_steps)
+    rows["sat_hits"]["path_sharded"] = ranks[0]["rows"]["sat_hits"][
+        "path_sharded"]
+    circle_ms = np.median(circle_res.timings["step_seconds"]) * 1e3
+    print(f"18c sharded circle, mesh (2, 2), B = 2, 4 processes on one "
+          f"card, gloo ({card}): both entries of every rank equal to phase "
+          f"5's run; step median "
+          f"{np.median(ranks[0]['step_seconds']) * 1e3:.3f} ms (phase 5 "
+          f"{circle_ms:.3f} ms); sat_hits launches per step and rank "
+          + ", ".join(f"{r['launches']['sat_hits'] / n_steps:.2f}"
+                      for r in ranks), flush=True)
+    # ---- 18d: the collectives' time, and the scaling line ---------------
+    gloo = multihost.spawn(collective_ms, 2, backend="gloo", device="cuda",
+                           timeout=300)[0]
+    for line in (nccl, gloo):
+        print(f"18d collectives ({card}): {json.dumps(line)}", flush=True)
+    scaling = subprocess.run(
+        [sys.executable, "-m", "pdmpc_torch.parallel.scaling", "--device",
+         "cuda", "--ranks", "2"], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    if scaling.returncode != 0:
+        raise AssertionError(f"18d scaling failed:\n{scaling.stdout}"
+                             f"{scaling.stderr[-3000:]}")
+    print(f"18d scaling ({card}): {scaling.stdout.strip().splitlines()[-1]}",
+          flush=True)
+
+
 # keys of a kernel's row in the JSON line, and their types
 CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
             "launches": int, "max_abs_err": float, "ms": float,
@@ -1832,6 +2084,9 @@ def main() -> int:
     human_driven(torch, coll, Config, card, dims, record, rows)
     centralized(torch, coll, Config, card, dims, record, rows)
     voting_batch(torch, coll, Config, card, record)
+    # ---- 18. the parallel computation modes -----------------------------
+    distributed_modes(torch, coll, Config, card, by_path, rows, road_res,
+                      circle_res)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]

@@ -1,8 +1,9 @@
 """Prioritized multi-vehicle control step — the HLC layer (main path).
 
-Torch twin of pdmpc_tpu/controller.py's single-program prioritized step
-(``make_prioritized_step`` with ``LocalComm`` and the compact chunk loop).
-One control period:
+Torch twin of pdmpc_tpu/controller.py's prioritized step
+(``make_prioritized_step``): on one program with ``LocalComm`` and the
+compact chunk loop, or vehicle-sharded over a process group with
+``MeshComm`` and the dense level loop. One control period:
 
 measure -> traffic info (reference trajectory, occupied areas, reachable
 sets; on a road also predicted lanelets and boundary segments, and the
@@ -35,9 +36,15 @@ the CAVs avoid its lane-bounded reachable sets unless it is behind them
 every scenario is one solve, one merged chunk loop, and each scenario
 votes on its own. ``make_centralized_step`` plans the whole fleet as one
 joint search over the trim product (``ops.search_centralized``), and
-``make_run`` takes it when ``Config.is_prioritized`` is off. The parallel
-computation modes and their dense level loop are not ported yet and
-raise NotImplementedError.
+``make_run`` takes it when ``Config.is_prioritized`` is off.
+
+Under a ``MeshComm`` (the parallel computation modes, ``parallel.
+sharded``) each rank holds its own vehicles' state [B, n_local, ...]:
+traffic info runs on them, one collective exchanges it, the graph stage
+runs replicated on the gathered tensors, and the dense level loop plans,
+level by level, the local vehicles at that level, every rank joining
+each level's exchange of the planned areas. Its records equal the single
+program's bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ import numpy as np
 import torch
 
 from pdmpc_torch.config import (
-    ComputationMode,
     Config,
     ConstraintFromSuccessor,
     CouplingStrategies,
@@ -164,17 +170,6 @@ VOTING = (PriorityStrategies.optimal_priority,
           PriorityStrategies.explorative_priority)
 
 
-def check_main_path(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port does not run yet: the
-    parallel computation modes (their dense level loop and the
-    distributed backend). HDVs, centralized planning and both voting
-    modes run, at any batch size."""
-    if cfg.computation_mode != ComputationMode.sequential:
-        raise NotImplementedError(
-            f"pdmpc_torch does not run computation_mode="
-            f"{cfg.computation_mode.value} yet")
-
-
 # ---------------------------------------------------------------------------
 # Traffic info (HighLevelController.update_controlled_vehicles_traffic_info)
 # ---------------------------------------------------------------------------
@@ -224,23 +219,22 @@ def _unique_padded(ids: torch.Tensor, size: int) -> torch.Tensor:
 def _occupied_area(pose, offset: float):
     """Vehicle rectangles [..., 4, 2] at poses [..., 3]. Reference:
     get_occupied_areas.m."""
-    return geo.transformed_rectangle(
-        pose[..., 0], pose[..., 1], pose[..., 2],
-        VEHICLE_LENGTH + 2 * offset, VEHICLE_WIDTH + 2 * offset,
-    )
+    return _rotated_rectangle(pose, torch.cos(pose[..., 2]),
+                              torch.sin(pose[..., 2]), offset)
 
 
-def _occupied_area_fused(pose, offset: float):
-    """``_occupied_area`` with the rotation fused as XLA:CPU compiles the
-    reference's HDV apply (tests/test_torch_numerics.py):
-    x = fma(c, lx, -(s * ly)) + px, y = fma(s, lx, c * ly) + py."""
+def _rotated_rectangle(pose, c, s, offset: float):
+    """``_occupied_area`` with the heading's cosine ``c`` and sine ``s``
+    given, the rotation fused as XLA:CPU compiles the reference's
+    ``_occupied_area`` in the step and in the HDV apply alike
+    (tests/test_torch_numerics.py): x = fma(c, lx, -(s * ly)) + px,
+    y = fma(s, lx, c * ly) + py."""
     hx = (VEHICLE_LENGTH + 2 * offset) / 2.0
     hy = (VEHICLE_WIDTH + 2 * offset) / 2.0
     local = torch.tensor([[-hx, -hy], [hx, -hy], [hx, hy], [-hx, hy]],
                          dtype=torch.float32, device=pose.device)
     lx, ly = local[:, 0], local[:, 1]
-    c = torch.cos(pose[..., 2])[..., None]
-    s = torch.sin(pose[..., 2])[..., None]
+    c, s = c[..., None], s[..., None]
     return torch.stack([geo.fma(c, lx, -(s * ly)) + pose[..., 0:1],
                         geo.fma(s, lx, c * ly) + pose[..., 1:2]], dim=-1)
 
@@ -705,13 +699,38 @@ _PER_VEHICLE = ("reference_paths", "path_cumlen", "is_loop",
                 "reference_speed", "segment_lanelet", "is_hdv")
 
 
-def _tile_scenario(scenario: ScenarioTensors, b: int) -> ScenarioTensors:
-    """``scenario`` with its per-vehicle tensors repeated for ``b``
-    scenarios: row b * N + v holds vehicle v's."""
+def _tile_scenario(scenario: ScenarioTensors, b: int,
+                   vehicles: torch.Tensor | None = None) -> ScenarioTensors:
+    """``scenario`` with the per-vehicle tensors of ``vehicles`` (global
+    indices; default: all) repeated for ``b`` scenarios: row b * n + i
+    holds vehicle ``vehicles[i]``'s."""
     return scenario._replace(**{
-        name: x.repeat(b, *(1,) * (x.dim() - 1))
+        name: (x if vehicles is None else x[vehicles]).repeat(
+            b, *(1,) * (x.dim() - 1))
         for name in _PER_VEHICLE
         if (x := getattr(scenario, name)) is not None})
+
+
+def dense_level_rows(levels: torch.Tensor, first: int, n_local: int,
+                     scenarios: list[int] | None = None
+                     ) -> list[torch.Tensor]:
+    """The dense level loop of a vehicle shard: for each computation level
+    1 to the largest of ``levels`` (global, [B, N], on the host), the
+    rows of the shard's vehicles ``first`` to ``first + n_local - 1`` at
+    that level, of the ``scenarios`` listed (default: all), as [4, V] i64
+    host tensors: scenario b, local vehicle v, local flattened row
+    b * n_local + v and global vehicle first + v (V may be 0: the shard
+    plans nothing at that level but joins its exchange)."""
+    lv = levels[:, first:first + n_local]
+    if scenarios is not None:
+        taking = torch.zeros(lv.shape[0], dtype=torch.bool)
+        taking[scenarios] = True
+        lv = torch.where(taking[:, None], lv, 0)
+    out = []
+    for level in range(1, int(levels.max()) + 1):
+        b, v = torch.nonzero(lv == level, as_tuple=True)
+        out.append(torch.stack([b, v, b * n_local + v, first + v]))
+    return out
 
 
 def _hdv_trim(mpa: MpaTensors, reference_speed):
@@ -766,14 +785,21 @@ def vehicles_at_intersection(time_step, times, positions,
 
 
 def make_prioritized_step(cfg: Config, mpa: MpaTensors,
-                          scenario: ScenarioTensors):
+                          scenario: ScenarioTensors, comm=None):
     """Build ``step(state, k) -> (state, info)`` for the prioritized
-    single-program path (PrioritizedSequentialController semantics) over
-    a batch of scenarios: ``state`` carries a leading scenario dim B
-    (``parallel.sharded.batched_initial_state``) and so does ``info``.
-    Each of the B scenarios runs ``scenario`` from its own state, as the
-    reference's ``jax.vmap`` of its step; B is read from the state."""
-    check_main_path(cfg)
+    path over a batch of scenarios: ``state`` carries a leading scenario
+    dim B (``parallel.sharded.batched_initial_state``) and so does
+    ``info``. Each of the B scenarios runs ``scenario`` from its own
+    state, as the reference's ``jax.vmap`` of its step; B is read from
+    the state.
+
+    ``comm`` selects the communication backend (``parallel.comm``): the
+    default ``LocalComm`` runs all vehicles in one program
+    (PrioritizedSequentialController semantics) with the compact chunk
+    loop; a ``MeshComm`` runs this rank's vehicles, the state [B,
+    n_local, ...], with the dense level loop. Per-vehicle records are
+    then the local vehicles' and the graph's records (adjacency, directed
+    couplings, levels, priorities) every vehicle's."""
     n = scenario.n_vehicles
     hp = mpa.Hp
     dt = cfg.dt_seconds
@@ -782,7 +808,18 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     max_num_cls = min(cfg.max_num_CLs, n)
     # planning chunk width; results are identical at any value
     c_chunk = min(n, cfg.level_chunk or 2)
-    comm = LocalComm(n)
+    comm = LocalComm(n) if comm is None else comm
+    nl = comm.n_local
+    # the global index of each local vehicle, under a MeshComm only: the
+    # single program takes every per-vehicle tensor whole
+    gidx = (None if isinstance(comm, LocalComm)
+            else comm.global_indices(dev))
+    first = 0 if gidx is None else int(gidx[0])
+
+    def own(x):
+        """The local vehicles' entries of a per-vehicle tensor [N, ...]."""
+        return x if gidx is None else x[gidx]
+
     not_self = ~torch.eye(n, dtype=torch.bool, device=dev)
     road = scenario.road
     # obstacle-geometry dispatch (OptimizerInterface.m:36-46): outline
@@ -804,19 +841,20 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         is_hdv = scenario.is_hdv                         # [N]
         # a CAV avoids an HDV's reachable sets (the HDV family)
         cav_avoids_hdv = is_hdv[None, :] & ~is_hdv[:, None] & not_self
-        hdv_trim = _hdv_trim(mpa, scenario.reference_speed)
-    tiles = {}                    # B -> the scenario's vehicles B times
+        is_hdv_l = own(is_hdv)
+        hdv_trim_l = own(_hdv_trim(mpa, scenario.reference_speed))
+    tiles = {}                    # B -> the local vehicles B times
 
     def step(state: StepState, k: int):
         bsz = state.pose.shape[0]
         if bsz not in tiles:
-            tiles[bsz] = _tile_scenario(scenario, bsz)
+            tiles[bsz] = _tile_scenario(scenario, bsz, gidx)
         sc_rows = tiles[bsz]
-        rows = bsz * n
+        rows = bsz * nl
         pose_r = state.pose.reshape(rows, 3)
         trim_r = state.trim.reshape(rows)
 
-        # ---- local traffic info, on the B*N vehicles flattened ----------
+        # ---- local traffic info, on the B*nl vehicles flattened ---------
         ref_points, v_ref, seg_idx, proj_seg = _reference_trajectory(
             mpa, sc_rows, pose_r, trim_r, dt
         )
@@ -866,8 +904,8 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         occupied_no_offset = _occupied_area(pose_r, 0.0)
 
         def per_scenario(x):
-            """[B*N, ...] -> [B, N, ...]."""
-            return None if x is None else x.reshape(bsz, n, *x.shape[1:])
+            """[B*nl, ...] -> [B, nl, ...]."""
+            return None if x is None else x.reshape(bsz, nl, *x.shape[1:])
 
         (ref_points, v_ref, reachable_sets, pred_lanelets, occupied_offset,
          occupied_no_offset) = map(per_scenario, (
@@ -875,11 +913,17 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
              occupied_offset, occupied_no_offset))
 
         # ---- traffic exchange, coupling graph and priorities -------------
+        # every per-vehicle field rides one collective, as the reference's
+        # single Traffic message (InterHlcCommunication.m:140)
         (pose_g, trim_g, rs_g, ref_points_g, occupied_offset_g,
-         prev_shapes_g, prev_valid_g, pred_lanelets_g) = comm.gather_tree((
+         prev_shapes_g, prev_valid_g, pred_lanelets_g, hdv_rs_g,
+         current_lanelet_g) = comm.gather_tree((
              state.pose, state.trim, reachable_sets, ref_points,
              occupied_offset, state.prev_shapes, state.prev_valid,
-             pred_lanelets))
+             pred_lanelets,
+             pad_polys_to_vo(per_scenario(hdv_rs)) if use_hdv else None,
+             (per_scenario(current_lanelet)[..., 0]
+              if use_hdv and road is not None else None)))
         adjacency = _couple(
             cfg, rs_g, pose_g, max_mpa_speed, pred_lanelets=pred_lanelets_g,
             adjacency_lanelets=(road.adjacency_lanelets
@@ -889,13 +933,10 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             # HDVs stay outside the coupling graph; a CAV avoids an HDV's
             # reachable sets unless the HDV is behind it
             adjacency = adjacency & ~is_hdv[:, None] & ~is_hdv[None, :]
-            hdv_rs_g = comm.gather_veh(pad_polys_to_vo(
-                per_scenario(hdv_rs)))                   # [B, N, Hp, VO, 2]
             hdv_family = cav_avoids_hdv
             if road is not None:
                 hdv_family = hdv_family & ~_hdv_behind(
-                    road, comm.gather_veh(per_scenario(current_lanelet)[
-                        ..., 0]), pose_g)
+                    road, current_lanelet_g, pose_g)
         if sampled:
             # the rollouts' Gumbel noise depends on (seed, step, vehicle)
             # only: one draw a step serves every solve and every scenario
@@ -931,11 +972,12 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         def solve(directed_p, scenarios=None):
             """One prioritized solve of every scenario for its directed
             coupling [B, N, N]: weigh -> cut -> levels -> obstacle
-            families -> merged compact chunk loop, in which only the
-            ``scenarios`` listed (default: all) plan (the others' plans
-            stay zero). Returns (planned, planned_shapes [B, N, Hp, VO,
-            2], sequential, levels); ``planned.shapes`` are the same
-            padded areas."""
+            families -> merged compact chunk loop (``LocalComm``) or dense
+            level loop (``MeshComm``), in which only the ``scenarios``
+            listed (default: all) plan (the others' plans stay zero).
+            Returns (planned, planned_shapes [B, N, Hp, VO, 2],
+            sequential, levels); ``planned`` holds the local vehicles'
+            plans, ``planned.shapes`` their padded areas."""
             weighted = _weigh(cfg, directed_p, pose_g, k, max_mpa_speed)
             sequential = graph_ops.greedy_cut(weighted, max_num_cls, n)
             levels, _ = graph_ops.kahn_levels(sequential)
@@ -962,33 +1004,31 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                 masks.append(static_mask.expand(bsz, n, -1))
                 polys.append(static_polys.expand(bsz, *static_polys.shape))
             obs_mask = comm.local_slice(torch.cat(masks, dim=-1))
-            n_obs = obs_mask.shape[-1]                   # [B, N, n_obs]
+            n_obs = obs_mask.shape[-1]                  # [B, nl, n_obs]
 
-            # ---- merged compact chunk loop: every vehicle planned once ---
-            # the schedule needs levels on the host: one sync a solve for
-            # the whole batch
-            chunks = merged_schedule(levels.cpu(), c_chunk, sequential.cpu(),
-                                     scenarios)
             # the plans; their swept areas padded to VO vertices, as the
             # obstacle family they become
             planned = PlanResult(
-                trims=torch.zeros((bsz, n, hp), dtype=torch.int64,
+                trims=torch.zeros((bsz, nl, hp), dtype=torch.int64,
                                   device=dev),
-                poses=torch.zeros((bsz, n, hp, 3), device=dev),
-                shapes=torch.zeros((bsz, n, hp, VO, 2), device=dev),
-                cost=torch.zeros((bsz, n), device=dev),
-                is_exhausted=torch.zeros((bsz, n), dtype=torch.bool,
+                poses=torch.zeros((bsz, nl, hp, 3), device=dev),
+                shapes=torch.zeros((bsz, nl, hp, VO, 2), device=dev),
+                cost=torch.zeros((bsz, nl), device=dev),
+                is_exhausted=torch.zeros((bsz, nl), dtype=torch.bool,
                                          device=dev),
-                n_expanded=torch.zeros((bsz, n), dtype=torch.int64,
+                n_expanded=torch.zeros((bsz, nl), dtype=torch.int64,
                                        device=dev),
             )
-            for chunk in chunks:
-                # a planning row is a (scenario, vehicle) pair; padded
-                # slots are not planned at all: no kernel work
-                bi, vi, ri = chunk.to(dev)               # one copy a chunk
+
+            def plan_rows(bi, vi, ri, gi, planned_shapes):
+                """Plan the planning rows (scenario ``bi``, local vehicle
+                ``vi``, local flattened row ``ri``, global vehicle
+                ``gi``) in one search call against the planned areas
+                ``planned_shapes`` [B, N, Hp, VO, 2], and write their
+                plans into ``planned``."""
                 nv = bi.shape[0]
                 # each row's obstacles are its own scenario's families
-                obs_polys = torch.cat([planned.shapes, *polys], dim=1)[bi]
+                obs_polys = torch.cat([planned_shapes, *polys], dim=1)[bi]
                 obstacles = Obstacles(
                     polys=obs_polys,
                     mask=obs_mask[bi, vi][:, :, None].expand(nv, n_obs, hp),
@@ -1001,7 +1041,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                           non_convex=non_convex)
                 if sampled:
                     result = plan_trajectory_sampled(
-                        *args, noise[vi], temperature=cfg.mcts_temperature,
+                        *args, noise[gi], temperature=cfg.mcts_temperature,
                         **kw)
                 else:
                     result = plan_trajectory(*args, cfg.beam_width, **kw)
@@ -1009,7 +1049,33 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                     shapes=pad_polys_to_vo(result.shapes))
                 for field, value in zip(planned, result):
                     field[bi, vi] = value
-            return planned, planned.shapes, sequential, levels
+
+            if gidx is None:
+                # ---- merged compact chunk loop: every vehicle planned
+                # once; the schedule needs levels on the host: one sync a
+                # solve for the whole batch
+                for chunk in merged_schedule(levels.cpu(), c_chunk,
+                                             sequential.cpu(), scenarios):
+                    # a planning row is a (scenario, vehicle) pair; padded
+                    # slots are not planned at all: no kernel work
+                    bi, vi, ri = chunk.to(dev)           # one copy a chunk
+                    plan_rows(bi, vi, ri, vi, planned.shapes)
+                return planned, planned.shapes, sequential, levels
+
+            # ---- dense level loop (pdmpc_tpu controller.py:1072-1130):
+            # level by level, the local vehicles at that level are planned
+            # in one call, and every rank joins the level's exchange of
+            # the planned areas (PrioritizedController.plan's blocking
+            # reads), whether or not it planned a vehicle at that level;
+            # the level count comes from the replicated levels, so it is
+            # the same on every rank
+            planned_shapes = torch.zeros((bsz, n, hp, VO, 2), device=dev)
+            for level in dense_level_rows(levels.cpu(), first, nl,
+                                          scenarios):
+                if level.shape[1]:
+                    plan_rows(*level.to(dev), planned_shapes)
+                planned_shapes = comm.gather_veh(planned.shapes)
+            return planned, planned_shapes, sequential, levels
 
         if cfg.priority == PriorityStrategies.optimal_priority:
             (planned, planned_shapes, sequential, levels, priorities,
@@ -1025,7 +1091,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                  max_num_cls)
         else:
             planned, planned_shapes, sequential, levels = solve(directed)
-            perm_chosen = torch.zeros((bsz, n), dtype=torch.int64,
+            perm_chosen = torch.zeros((bsz, nl), dtype=torch.int64,
                                       device=dev)
         is_exhausted = planned.is_exhausted
 
@@ -1036,19 +1102,20 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             stay_still_ok = torch.zeros_like(is_exhausted)
         else:
             stay_still_ok = is_exhausted & (mpa.trim_speed[state.trim] == 0.0)
-        ss_poses = state.pose[:, :, None, :].expand(bsz, n, hp, 3)
-        ss_trims = state.trim[:, :, None].expand(bsz, n, hp)
+        ss_poses = state.pose[:, :, None, :].expand(bsz, nl, hp, 3)
+        ss_trims = state.trim[:, :, None].expand(bsz, nl, hp)
         ss_shapes = pad_polys_to_vo(occupied_no_offset)[:, :, None].expand(
-            bsz, n, hp, VO, 2)
+            bsz, nl, hp, VO, 2)
         ss_cost = _tracking_cost(ss_poses, ref_points)
 
-        # fallback propagation over the coupling graph; an HDV never
-        # falls back
+        # fallback propagation over the coupling graph, on every
+        # vehicle's flags (the Predictions' needs_fallback field); an HDV
+        # never falls back
         needs_fallback = is_exhausted & ~stay_still_ok
         if use_hdv:
-            needs_fallback = needs_fallback & ~is_hdv
-        fallbacks = graph_ops.fallback_closure(needs_fallback, adjacency,
-                                               sequential)
+            needs_fallback = needs_fallback & ~is_hdv_l
+        fallbacks = comm.local_slice(graph_ops.fallback_closure(
+            comm.gather_veh(needs_fallback), adjacency, sequential))
 
         # fallback plan: previous plan shifted by one, last repeated
         # (plan_fallback, :678-718); without a previous plan: stand still
@@ -1072,7 +1139,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
         use_ss = stay_still_ok & ~fallbacks
 
         def choose(planned_v, ss_v, fb_v):
-            shape = (bsz, n) + (1,) * (planned_v.dim() - 2)
+            shape = (bsz, nl) + (1,) * (planned_v.dim() - 2)
             return torch.where(
                 fallbacks.reshape(shape), fb_v,
                 torch.where(use_ss.reshape(shape), ss_v, planned_v),
@@ -1080,7 +1147,8 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
 
         final_poses = choose(planned.poses, ss_poses, fb_poses)
         final_trims = choose(planned.trims, ss_trims, fb_trims)
-        final_shapes = choose(planned_shapes, ss_shapes, fb_shapes)
+        final_shapes = choose(comm.local_slice(planned_shapes), ss_shapes,
+                              fb_shapes)
         final_cost = choose(planned.cost, ss_cost, fb_cost)
         if use_hdv:
             # HDVs drive their reference path (the lab's human input; in
@@ -1088,15 +1156,15 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             hdv_poses = torch.cat([ref_points,
                                    _calculate_yaw(ref_points)[..., None]],
                                   dim=-1)                    # [B, N, Hp, 3]
-            hdv_shapes = pad_polys_to_vo(_occupied_area_fused(hdv_poses,
-                                                              cfg.offset))
-            final_poses = torch.where(is_hdv[:, None, None], hdv_poses,
+            hdv_shapes = pad_polys_to_vo(_occupied_area(hdv_poses,
+                                                        cfg.offset))
+            final_poses = torch.where(is_hdv_l[:, None, None], hdv_poses,
                                       final_poses)
-            final_trims = torch.where(is_hdv[:, None], hdv_trim[:, None],
+            final_trims = torch.where(is_hdv_l[:, None], hdv_trim_l[:, None],
                                       final_trims)
-            final_shapes = torch.where(is_hdv[:, None, None, None],
+            final_shapes = torch.where(is_hdv_l[:, None, None, None],
                                        hdv_shapes, final_shapes)
-            fallbacks = fallbacks & ~is_hdv
+            fallbacks = fallbacks & ~is_hdv_l
 
         # ---- apply (Simulation.apply, plant/Simulation.m:86-117) ----------
         new_state = StepState(
@@ -1105,7 +1173,7 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             prev_poses=final_poses,
             prev_trims=final_trims,
             prev_shapes=final_shapes,
-            prev_valid=torch.ones((bsz, n), dtype=torch.bool, device=dev),
+            prev_valid=torch.ones((bsz, nl), dtype=torch.bool, device=dev),
             priorities_prev=comm.local_slice(priorities),
         )
         info = StepInfo(
@@ -1145,7 +1213,6 @@ def make_centralized_step(cfg: Config, mpa: MpaTensors,
     flagged exhausted. ``state`` and ``info`` carry a leading scenario dim
     B, and each scenario is planned on its own, as under the reference's
     ``jax.vmap``."""
-    check_main_path(cfg)
     n = scenario.n_vehicles
     hp = mpa.Hp
     dt = cfg.dt_seconds
@@ -1234,25 +1301,31 @@ def make_centralized_step(cfg: Config, mpa: MpaTensors,
     return step
 
 
-def make_run(cfg: Config):
+def make_run(cfg: Config, comm=None, n_steps: int | None = None):
     """Receding-horizon experiment (HighLevelController.m:334-373) of a
     batch of scenarios, prioritized or, where ``Config.is_prioritized`` is
     off, centralized: ``run(states0, mpa, scenario, step_seconds=None)
     -> (final_states, infos)``, the states with a leading scenario dim B
-    and the infos [B, k_end, ...], as the reference's ``jax.vmap`` of its
-    run returns them. When a list is given as ``step_seconds``, each
-    batched step's wall-clock time (device work included) is appended to
-    it."""
+    and the infos [B, k_end, ...] (``n_steps`` steps where given), as the
+    reference's ``jax.vmap`` of its run returns them. When a list is
+    given as ``step_seconds``, each batched step's wall-clock time (device
+    work included) is appended to it. A ``comm`` (``parallel.comm``)
+    makes the prioritized step run its vehicles, as
+    ``make_prioritized_step`` says."""
+    if comm is not None and not cfg.is_prioritized:
+        raise ValueError("centralized planning plans the whole fleet as one "
+                         "search; it runs on one program")
+    steps = cfg.k_end if n_steps is None else n_steps
 
     def run(state: StepState, mpa: MpaTensors, scenario: ScenarioTensors,
             step_seconds: list | None = None):
-        make_step = (make_prioritized_step if cfg.is_prioritized
-                     else make_centralized_step)
-        step = make_step(cfg, mpa, scenario)
+        step = (make_prioritized_step(cfg, mpa, scenario, comm)
+                if cfg.is_prioritized
+                else make_centralized_step(cfg, mpa, scenario))
         sync = (torch.cuda.synchronize
                 if state.pose.device.type == "cuda" else (lambda: None))
         infos = []
-        for k in range(cfg.k_end):
+        for k in range(steps):
             t0 = time.perf_counter()
             state, info = step(state, k)
             sync()

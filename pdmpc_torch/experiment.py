@@ -6,11 +6,16 @@ receding-horizon loop and returns an :class:`ExperimentResult` whose
 ``infos`` have the reference's fields, stacked over steps as numpy arrays.
 ``run_experiment`` runs one scenario; ``run_experiment_batch`` plans a
 batch of scenario rollouts in one merged chunk loop a step, each entry
-equal to its run alone.
+equal to its run alone. ``ExperimentResult.save`` and ``load`` keep a
+result as the reference's package does (the same ``.npz`` and ``.json``
+files), so a result saved by either package loads in the other.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -23,7 +28,6 @@ from pdmpc_torch.config import Config, ScenarioType
 from pdmpc_torch.controller import (
     StepInfo,
     StepState,
-    check_main_path,
     infos_to_numpy,
     make_run,
 )
@@ -58,16 +62,21 @@ def create_scenario(options: Config, mpa: Mpa) -> Scenario:
 class ExperimentResult:
     """Result object (hlc/controller/common/ExperimentResult.m): options,
     per-step infos [k_end, ...] (numpy; [B, k_end, ...] for a batch of B
-    scenarios), final state, timings."""
+    scenarios), final state, timings and the code revision."""
 
     options: Config
     infos: StepInfo
     final_state: Any
     timings: dict[str, Any] = field(default_factory=dict)
+    git_hash: str = ""
 
     @property
     def n_steps(self) -> int:
         return int(self.infos.cost.shape[-2])
+
+    @property
+    def t_total(self) -> float:
+        return self.n_steps * self.options.dt_seconds
 
     @property
     def n_vehicles(self) -> int:
@@ -76,6 +85,50 @@ class ExperimentResult:
     @property
     def max_number_of_computation_levels(self) -> int:
         return int(self.infos.levels.max())
+
+    def save(self, directory: str, partial: bool = False) -> str:
+        """Write ``<directory>/<yymmdd-HHMMSS>.npz`` (``info_<field>``
+        arrays) and ``.json`` (``config``, ``timings``, ``git_hash``; and
+        ``partial``, for a truncated save that ``utils.filenames.
+        load_latest`` never serves), as pdmpc_tpu's ``save``. Returns the
+        path without suffix."""
+        os.makedirs(directory, exist_ok=True)
+        base = os.path.join(directory, time.strftime("%y%m%d-%H%M%S"))
+        np.savez_compressed(base + ".npz", **{
+            f"info_{k}": np.asarray(v)
+            for k, v in self.infos._asdict().items()})
+        meta = {"config": self.options.to_json_dict(),
+                "timings": self.timings, "git_hash": self.git_hash}
+        if partial:
+            meta["partial"] = True
+        with open(base + ".json", "w") as f:
+            json.dump(meta, f, indent=2)
+        return base
+
+    @staticmethod
+    def load(base: str) -> "ExperimentResult":
+        """The result ``save`` wrote at ``base`` (no final state)."""
+        with open(base + ".json") as f:
+            meta = json.load(f)
+        with np.load(base + ".npz") as data:
+            infos = StepInfo(**{k[len("info_"):]: data[k]
+                                for k in data.files
+                                if k.startswith("info_")})
+        return ExperimentResult(
+            options=Config.from_json_dict(meta["config"]), infos=infos,
+            final_state=None, timings=meta["timings"],
+            git_hash=meta["git_hash"])
+
+
+def git_hash() -> str:
+    """The checkout's commit, or "" where it is not a git checkout."""
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+            timeout=5, cwd=os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return ""
 
 
 def run_experiment(options: Config, device=None) -> ExperimentResult:
@@ -122,7 +175,6 @@ def run_batch_from(options: Config, states0, device=None) -> ExperimentResult:
     mpa_t = mpa.to_tensors_for(options, device)
     sc_t = scenario.to_tensors(device)
     state0 = states0(sc_t, options)
-    check_main_path(options)
     timings["hlc_init_all"] = time.perf_counter() - t0
 
     run = make_run(options)
@@ -141,6 +193,7 @@ def run_batch_from(options: Config, states0, device=None) -> ExperimentResult:
         infos=infos_to_numpy(infos),
         final_state=StepState(*(x.cpu() for x in final_state)),
         timings=timings,
+        git_hash=git_hash(),
     )
 
 

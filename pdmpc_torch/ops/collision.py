@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import subprocess
 import threading
@@ -151,8 +152,11 @@ _lib_lock = threading.Lock()
 
 
 def build_kernels(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/collision.cu`` with nvcc (once per process) and load
-    it. The library lands in the package's ``_build/`` directory."""
+    """Compile ``csrc/collision.cu`` with nvcc and load it, once per
+    process. The library lands in the package's ``_build/`` directory,
+    named by a hash of the source and the flags, and a process that finds
+    it there loads it without compiling (the ranks of a distributed run,
+    started after one build)."""
     global _lib
     if _lib is not None:
         return _lib
@@ -164,18 +168,23 @@ def build_kernels(verbose: bool = False) -> ctypes.CDLL:
         if not os.path.isfile(nvcc):
             nvcc = "nvcc"
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        out = os.path.join(_BUILD_DIR, "libcollision.so")
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        proc = subprocess.run(cmd + ["-o", tmp, _SRC], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)
+        with open(_SRC, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(
+                NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = os.path.join(_BUILD_DIR, f"libcollision-{digest}.so")
+        if not os.path.isfile(out):
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            proc = subprocess.run(cmd + ["-o", tmp, _SRC],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+            if verbose:
+                print(proc.stdout + proc.stderr, flush=True)
+            os.replace(tmp, out)
         lib = ctypes.CDLL(out)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lattice = ([ptr, i32, i32, ptr, i64, i64, ptr, i64, i64, ptr, ptr,

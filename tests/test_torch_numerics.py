@@ -183,6 +183,7 @@ def expressions(n, seed=0):
     })
     out.update(centralized_expressions(rng, m))
     out.update(hdv_expressions(rng, m))
+    out.update(occupied_expressions(rng, m))
     return out
 
 
@@ -355,6 +356,42 @@ def hdv_expressions(rng, m):
     return out
 
 
+def occupied_expressions(rng, m):
+    """The step's vehicle rectangles: ``_occupied_area`` of the poses with
+    the configuration's offset and without, vmapped as the reference's
+    step computes them (its stand-still areas and successor family). Each
+    placement reads XLA's own cosines and sines."""
+    from pdmpc_tpu import controller as jctl
+
+    out = {}
+    poses = np.concatenate([rng.uniform(0, 4.5, (m, 2)),
+                            rng.uniform(-np.pi, np.pi, (m, 1))],
+                           axis=-1).astype(F32)
+    c, s = (np.asarray(jax.jit(f)(poses[:, 2]))[:, None]
+            for f in (jnp.cos, jnp.sin))
+    for offset in (0.01, 0.0):
+        js = np.asarray(jax.jit(jax.vmap(lambda p, o=offset: jctl.
+                                         _occupied_area(p, o)))(poses))
+        local = np.asarray(jctl.geo.transformed_rectangle(
+            0.0, 0.0, 0.0, jctl.VEHICLE_LENGTH + 2 * offset,
+            jctl.VEHICLE_WIDTH + 2 * offset))
+        lx, ly = local[None, :, 0], local[None, :, 1]
+        out[f"occupied x = c*lx - s*ly + x, offset {offset}"] = (
+            js[..., 0], rotated_placements(
+                c, s, lx, ly, poses[:, 0:1],
+                "port: fma(c, lx, -(s*ly)) + x"))
+        cl, sl = mul(c, ly), mul(s, lx)
+        out[f"occupied y = s*lx + c*ly + y, offset {offset}"] = (
+            js[..., 1], {
+                "port: fma(s, lx, c*ly) + y": add(port_fma(s, lx, cl),
+                                                  poses[:, 1:2]),
+                "fma(c, ly, s*lx) + y": add(fma_exact(*np.broadcast_arrays(
+                    c, ly, sl)), poses[:, 1:2]),
+                "rounded": add(add(sl, cl), poses[:, 1:2]),
+            })
+    return out
+
+
 def ulp_sources(n, seed=0):
     """Mismatches of XLA:CPU's vectorized sqrt, cos and sin against
     torch's on n float32 inputs (no placement can repair these)."""
@@ -381,6 +418,9 @@ CENTRALIZED_AND_HDV = [
     "HDV shape x = c*lx - s*ly + x",
     "HDV behind heading . (hdv - cav)",
 ]
+# the step's vehicle rectangles (the stand-still areas and family)
+OCCUPIED = [f"occupied {c}, offset {o}" for o in (0.01, 0.0)
+            for c in ("x = c*lx - s*ly + x", "y = s*lx + c*ly + y")]
 
 
 @pytest.fixture(scope="module")
@@ -395,7 +435,7 @@ def forms():
                                   "FCA SAT projection matmul",
                                   "rollout logits -sum((fan - ref)**2) / T",
                                   "rollout cost g + fan_d2[child]",
-                                  *CENTRALIZED_AND_HDV])
+                                  *CENTRALIZED_AND_HDV, *OCCUPIED])
 def test_port_placement_matches_xla(forms, name):
     want, placements = forms[name]
     want = np.asarray(want)
