@@ -131,7 +131,26 @@ Phases, any failure exits non-zero:
    launches a step on each rank and step medians printed; (d) the
    vehicle group's collectives timed on each backend (the traffic
    bundle's gather, one level's areas, the voting costs' psum) and
-   ``python -m pdmpc_torch.parallel.scaling --device cuda --ranks 2``.
+   ``python -m pdmpc_torch.parallel.scaling --device cuda --ranks 2``;
+19. the host-driven loop, the plants and the evaluation (counters zeroed
+   before each run and read after it): (a) phase 3's configuration
+   through ``hlc.run_with_plant`` with the simulation plant, equal to
+   phase 3's run in every record with its launches; (b) the headline
+   through it, equal to phase 9's run, ``compute_values`` and a
+   ``values.txt`` in a temporary directory; (c) phase 5's circle against
+   ``ExternalPlant`` fed by ``python -m pdmpc_torch.plant_bridge`` (a
+   clock 37.5 s ahead), equal to phase 5's run, one command sent and
+   received a step, the offset recovered by ``normalize_timing_results``
+   within 1 s; (d) a failure injected at step 4 reaches the phase and
+   leaves a partial save, in a temporary results root, that
+   ``load_latest`` does not serve; (e) ``eval_prioritization`` and
+   ``eval_bounding`` at smoke size (commonroad 10 vehicles, beam 128, one
+   seed, 2 s, bounds (1, 99)) into a temporary root, every run
+   collision-free (the figures need matplotlib, which the card's hosts
+   lack: tests/test_torch_viz.py draws every one on the CPU); (f)
+   ``profile_trace`` around a road and a circle step names the three
+   kernels; (g) cr3 (the golden configuration) with ``debug_capture``:
+   every plan oracle-optimal under the numpy and the native A*.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -145,7 +164,7 @@ phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
 circle), ``path_centralized`` (boundary: phase 17e's first step), ``oversize``
 (phase 13, per size and budget), ``launches_per_step`` and
 ``launches_by_path`` (launches, launches a step and lattice-form launches
-of every driven run of phases 3, 5 and 9 to 18; a sharded run's summed
+of every driven run of phases 3, 5 and 9 to 19; a sharded run's summed
 over its ranks); for SAT also ``path_sharded`` (phase 18c's level) and
 ``lattice``
 (phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
@@ -161,6 +180,7 @@ import sys
 import time
 from dataclasses import replace
 from functools import partial
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1883,6 +1903,308 @@ def distributed_modes(torch, coll, Config, card, by_path, rows, road_res,
           flush=True)
 
 
+def hold_host_run(res, ref, label):
+    """Raise unless a host-loop result equals a run_experiment result in
+    every record."""
+    bad = differing_fields(res.infos, ref.infos)
+    if res.n_steps != ref.n_steps or bad:
+        raise AssertionError(f"{label}: {res.n_steps} steps against "
+                             f"{ref.n_steps}, differing {bad}")
+
+
+def span_medians(res):
+    """Medians (ms) of the host loop's measure, plan and apply spans."""
+    return {span: float(np.median(np.asarray(res.timings[span])[1]) * 1e3)
+            for span in ("measure", "plan", "apply")}
+
+
+def replay_oracle(torch, coll, Config, card, record):
+    """19g: the cr3 golden configuration on the card, step by step with
+    ``debug_capture``: every plan oracle-optimal under the numpy and the
+    native A* (tests/test_oracle_replay.py's checks on the CPU)."""
+    from pdmpc_torch.controller import make_prioritized_step
+    from pdmpc_torch.experiment import create_scenario
+    from pdmpc_torch.models.mpa import build_mpa
+    from pdmpc_torch.native import astar_plan_native
+    from pdmpc_torch.parallel.sharded import batched_initial_state
+    from pdmpc_torch.utils.astar_oracle import astar_plan
+
+    cfg = Config(amount=3, T_end=4.0, beam_width=64).validate()
+    mpa = build_mpa(cfg)
+    mpa_t = mpa.to_tensors_for(cfg, "cuda")
+    sc_t = create_scenario(cfg, mpa).to_tensors("cuda")
+    step = make_prioritized_step(cfg, mpa_t, sc_t, debug_capture=True)
+    state = batched_initial_state(sc_t, cfg.Hp, 1)
+    zero_counts(coll)
+    steps = []
+    for k in range(cfg.k_end):
+        state, info, cap = step(state, k)
+        steps.append((type(info)(*(x[0].cpu().numpy() for x in info)),
+                      {key: v.cpu().numpy() for key, v in cap.items()}))
+    launches = {name: getattr(coll, name).launches for name in KERNELS}
+    if not (launches["outline_hits"] and launches["boundary_hits"]) \
+            or launches["sat_hits"]:
+        raise AssertionError(f"19g: launches {launches}")
+    checked, gaps, native_s, numpy_s = 0, [], 0.0, 0.0
+    for k, (info, cap) in enumerate(steps):
+        for v in range(cfg.amount):
+            if info.needs_fallback[v] or info.is_exhausted[v]:
+                continue
+            obs = cap["obs_polys"][v]
+            kw = dict(x0=cap["pose0"][v], trim0=int(cap["trim0"][v]),
+                      ref_points=cap["ref_points"][v], v_ref=cap["v_ref"][v],
+                      obs_polys=obs, obs_mask=np.broadcast_to(
+                          cap["obs_mask"][v][:, None], (obs.shape[0],
+                                                        cfg.Hp)),
+                      dt=cfg.dt_seconds, boundary_segments=cap["bnd_segs"][v],
+                      boundary_mask=cap["bnd_mask"][v], non_convex=True)
+            t0 = time.perf_counter()
+            oracle = astar_plan(mpa, **kw)
+            numpy_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            native = astar_plan_native(mpa, **kw)
+            native_s += time.perf_counter() - t0
+            beam = float(info.cost[v])
+            gap = (beam - oracle.cost) / max(oracle.cost, 1e-9)
+            if (oracle.is_exhausted or oracle.cost > beam * (1 + 1e-4) + 1e-6
+                    or gap > 1e-3 or not (info.trims[v]
+                                          == oracle.trims).all()):
+                raise AssertionError(f"19g step {k} vehicle {v}: beam "
+                                     f"{beam} {info.trims[v]}, oracle "
+                                     f"{oracle.cost} {oracle.trims}")
+            if (native.is_exhausted or not (native.trims == oracle.trims).all()
+                    or abs(native.cost - oracle.cost)
+                    > 1e-9 * abs(oracle.cost)):
+                raise AssertionError(f"19g step {k} vehicle {v}: native "
+                                     f"{native.cost} {native.trims}, numpy "
+                                     f"{oracle.cost} {oracle.trims}")
+            gaps.append(gap)
+            checked += 1
+    if checked < 40:
+        raise AssertionError(f"19g: only {checked} plans checked")
+    print(f"19g oracle replay, cr3 beam 64 with debug_capture ({card}): "
+          f"{checked} plans oracle-optimal under the numpy and the native "
+          f"A* (largest relative gap {max(gaps):.3e}); oracle seconds a "
+          f"plan: numpy {numpy_s / checked:.4f}, native "
+          f"{native_s / checked:.6f}; launches per step "
+          + ", ".join(f"{k} {v / cfg.k_end:.2f}" for k, v in
+                      launches.items()), flush=True)
+    record("cr3 debug_capture", launches, SimpleNamespace(n_steps=cfg.k_end))
+
+
+def host_loop_and_evaluation(torch, coll, Config, card, dims, record,
+                             road, road_res, circle_res, headline,
+                             headline_res):
+    """Phase 19: the host-driven loop, the plants and the evaluation."""
+    import tempfile
+
+    from pdmpc_torch import ScenarioType, hlc
+    from pdmpc_torch.eval import experiments, phd
+    from pdmpc_torch.eval.processing import normalize_timing_results
+    from pdmpc_torch.experiment import (
+        ExperimentResult,
+        create_scenario,
+        run_experiment,
+    )
+    from pdmpc_torch.models.mpa import build_mpa
+    from pdmpc_torch.plant import ExternalPlant
+    from pdmpc_torch.plant_bridge import PlantBridgeClient, launch_server
+    from pdmpc_torch.utils import filenames
+    from pdmpc_torch.utils.timing import profile_trace
+
+    road_kernels = ("outline_hits", "boundary_hits")
+    road_cfg = Config(amount=20, T_end=4.0)
+    circle_cfg = Config(scenario_type=ScenarioType.circle, amount=10,
+                        T_end=8.0)
+    device_name = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    # ---- 19a: phase 3's run through the host loop -----------------------
+    # phase 3's run again first: the host-bound step's time drifts over
+    # the phases of one process, so the spans are compared with a step
+    # median taken just before them
+    again = run_experiment(road_cfg, device="cuda")
+    launches, host_road = counted_run(coll, hlc.run_with_plant, road_cfg,
+                                      "19a host loop road", road_kernels)
+    hold_host_run(host_road, road_res, "19a")
+    hold_host_run(again, road_res, "19a phase 3 again")
+    if launches != road:
+        raise AssertionError(f"19a: launches {launches}, phase 3 {road}")
+    record("host loop road", launches, host_road)
+    print(f"19a host loop, phase 3's cr20 with the simulation plant "
+          f"({card}): equal to phase 3's run in every record, launches per "
+          f"step " + ", ".join(f"{k} {v / host_road.n_steps:.2f}"
+                               for k, v in launches.items())
+          + f" (phase 3's); span medians ms {span_medians(host_road)}; "
+          f"step median of phase 3's run just before "
+          f"{np.median(again.timings['step_seconds']) * 1e3:.3f} ms "
+          f"(phase 3: "
+          f"{np.median(road_res.timings['step_seconds']) * 1e3:.3f} ms)",
+          flush=True)
+    # ---- 19b: the headline through the host loop; values.txt ------------
+    launches, host_headline = counted_run(
+        coll, hlc.run_with_plant, headline, "19b host loop headline",
+        road_kernels)
+    hold_host_run(host_headline, headline_res, "19b")
+    record("host loop headline", launches, host_headline)
+    values = phd.compute_values(host_headline, i_step_start=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = phd.write_values_txt(
+            host_headline, path=os.path.join(tmp, "values.txt"),
+            i_step_start=1, label=f"{device_name} cr20 coloring (host loop)")
+        with open(path) as f:
+            line = f.read().strip()
+    print(f"19b host loop, the headline ({card}): equal to phase 9's run in "
+          f"every record; compute_values {values}; values.txt: {line}; span "
+          f"medians ms {span_medians(host_headline)}", flush=True)
+    # ---- 19c: phase 5's circle against a plant in another process -------
+    offset_s = 37.5
+    scenario = create_scenario(circle_cfg.validate(),
+                               build_mpa(circle_cfg.validate()))
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"start_poses": scenario.start_poses.tolist(),
+                       "clock_offset_s": offset_s}, f)
+        proc, port = launch_server(spec, 60.0)
+        try:
+            client = PlantBridgeClient("127.0.0.1", port, timeout_s=60.0)
+            plant = ExternalPlant(circle_cfg, measure_fn=client.measure_fn,
+                                  command_fn=client.command_fn)
+            launches, bridged = counted_run(
+                coll, partial(hlc.run_with_plant, plant=plant), circle_cfg,
+                "19c bridge circle", ("sat_hits",))
+            server = client.finish()
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"19c: server exit {proc.returncode}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    hold_host_run(bridged, circle_res, "19c")
+    record("bridge circle", launches, bridged)
+    send = np.asarray(client.command_send_times)
+    recv = np.asarray(server["command_recv_times"])
+    if len(send) != bridged.n_steps or len(recv) != bridged.n_steps:
+        raise AssertionError(f"19c: {len(send)} commands sent, {len(recv)} "
+                             f"received in {bridged.n_steps} steps")
+    normed = normalize_timing_results(
+        [{"receive_from_others": np.stack([t, np.zeros_like(t)]),
+          "controller_start_time": float(t[0])} for t in (send, recv)])
+    recovered = normed[1]["offset"] - normed[0]["offset"]
+    if abs(recovered - offset_s) >= 1.0:
+        raise AssertionError(f"19c: offset {recovered} recovered")
+    print(f"19c bridge, phase 5's circle through ExternalPlant and python -m "
+          f"pdmpc_torch.plant_bridge ({card}): equal to phase 5's run in "
+          f"every record; one command sent and received a step; clock "
+          f"offset {offset_s} s recovered as {recovered:.6f} s; span "
+          f"medians ms {span_medians(bridged)}; sat_hits launches per step "
+          f"{launches['sat_hits'] / bridged.n_steps:.2f}", flush=True)
+    # ---- 19d: a failure mid-run leaves a partial save -------------------
+    saved_root = filenames.RESULTS_ROOT
+    with tempfile.TemporaryDirectory() as tmp:
+        filenames.RESULTS_ROOT = tmp
+        try:
+            def fail_at_4(k, info):
+                if k == 4:
+                    raise RuntimeError("injected failure at step 4")
+            try:
+                hlc.run_with_plant(circle_cfg, on_step=fail_at_4,
+                                   device="cuda")
+                raised = False
+            except RuntimeError as err:
+                if "injected failure" not in str(err):
+                    raise
+                raised = True
+            metas = [os.path.join(d, f) for d, _, files in os.walk(tmp)
+                     for f in files if f.endswith(".json")]
+            served = filenames.load_latest(circle_cfg.validate())
+        finally:
+            filenames.RESULTS_ROOT = saved_root
+        truncated = ExperimentResult.load(metas[0][:-len(".json")]) \
+            if len(metas) == 1 else None
+    if not raised or served is not None or truncated is None:
+        raise AssertionError(f"19d: raised {raised}, {len(metas)} saves, "
+                             f"served {served is not None}")
+    head = type(circle_res.infos)(*(x[:5] for x in circle_res.infos))
+    if truncated.n_steps != 5 or differing_fields(truncated.infos, head):
+        raise AssertionError(f"19d: the partial save's {truncated.n_steps} "
+                             f"steps differ from phase 5's")
+    print(f"19d save on error ({card}): the failure at step 4 reached the "
+          f"phase, the partial result (5 steps, equal to phase 5's first "
+          f"5) is saved and not served", flush=True)
+    # ---- 19e: the sweeps at smoke size, and the figures -----------------
+    base = Config(amount=10, T_end=2.0, beam_width=128)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(n_vehicles_list=(10,), seeds=(1,), root=tmp,
+                  device="cuda")
+        t0 = time.perf_counter()
+        sweeps = {"prioritization": experiments.eval_prioritization(base,
+                                                                    **kw),
+                  "bounding": experiments.eval_bounding(base, bounds=(1, 99),
+                                                        **kw)}
+        sweep_s = time.perf_counter() - t0
+        runs = [ExperimentResult.load(os.path.join(d, f)[:-len(".json")])
+                for d, _, files in os.walk(tmp) for f in files
+                if f.endswith(".json")]
+        for res in runs:
+            hits = vehicle_collisions(res.infos.poses[:, :, 0], *dims)
+            if hits:
+                raise AssertionError(f"19e {res.options.priority.value} "
+                                     f"max_num_CLs {res.options.max_num_CLs}"
+                                     f": collisions {hits[:5]}")
+        for name, cells in sweeps.items():
+            for key, summary in cells.items():
+                print(f"19e {name} {key}: fallback rate "
+                      f"{summary['fallback_rate']:.4f}, levels max "
+                      f"{summary['max_levels']} median "
+                      f"{summary['median_levels']}, total cost "
+                      f"{summary['total_cost']:.6f}, step mean "
+                      f"{summary['step_time_mean_ms']:.3f} ms", flush=True)
+    if len(runs) != 6:
+        raise AssertionError(f"19e: {len(runs)} runs saved, not 6")
+    print(f"19e sweeps ({card}): commonroad 10 vehicles, beam 128, 1 seed, "
+          f"T_end 2.0, bounds (1, 99): {len(runs)} runs collision-free in "
+          f"{sweep_s:.1f} s (the figures need matplotlib, which this host "
+          f"may lack: tests/test_torch_viz.py draws them)", flush=True)
+    # ---- 19f: profile_trace names the three kernels ---------------------
+    from pdmpc_torch.controller import make_prioritized_step
+    from pdmpc_torch.parallel.sharded import batched_initial_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = []
+        for cfg in (road_cfg.validate(), circle_cfg.validate()):
+            mpa = build_mpa(cfg)
+            sc_t = create_scenario(cfg, mpa).to_tensors("cuda")
+            step = make_prioritized_step(cfg, mpa.to_tensors_for(cfg, "cuda"),
+                                         sc_t)
+            state, _ = step(batched_initial_state(sc_t, cfg.Hp, 1), 0)
+            steps.append((step, state))
+        torch.cuda.synchronize()
+        with profile_trace(tmp) as prof:
+            for step, state in steps:
+                step(state, 1)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            trace = f.read()
+        trace_mb = len(trace) / 1e6
+    names = {e.key: e.count for e in prof.key_averages()}
+    missing = [k for k in KERNELS if f'"{k}"' not in trace]
+    device_kernels = {frag: sum(c for key, c in names.items() if frag in key)
+                      for frag in ("OutlineSegs", "BoundarySegs",
+                                   "sat_hits_kernel")}
+    if missing or not all(device_kernels.values()):
+        raise AssertionError(f"19f: trace lacks {missing}, device kernels "
+                             f"{device_kernels}")
+    print(f"19f profile_trace of a road and a circle step ({card}): a "
+          f"{trace_mb:.1f} MB Chrome trace naming "
+          + ", ".join(f"{k} ({names.get(k, 0)} ranges)" for k in KERNELS)
+          + f"; their device kernels {device_kernels}", flush=True)
+    # ---- 19g: the oracle replay on the card -----------------------------
+    replay_oracle(torch, coll, Config, card, record)
+    print(f"phase 19 ({card}): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # keys of a kernel's row in the JSON line, and their types
 CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
             "launches": int, "max_abs_err": float, "ms": float,
@@ -2087,6 +2409,9 @@ def main() -> int:
     # ---- 18. the parallel computation modes -----------------------------
     distributed_modes(torch, coll, Config, card, by_path, rows, road_res,
                       circle_res)
+    # ---- 19. the host loop, the plants and the evaluation ---------------
+    host_loop_and_evaluation(torch, coll, Config, card, dims, record, road,
+                             road_res, circle_res, headline, headline_res)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]

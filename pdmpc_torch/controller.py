@@ -785,7 +785,8 @@ def vehicles_at_intersection(time_step, times, positions,
 
 
 def make_prioritized_step(cfg: Config, mpa: MpaTensors,
-                          scenario: ScenarioTensors, comm=None):
+                          scenario: ScenarioTensors, comm=None,
+                          debug_capture: bool = False):
     """Build ``step(state, k) -> (state, info)`` for the prioritized
     path over a batch of scenarios: ``state`` carries a leading scenario
     dim B (``parallel.sharded.batched_initial_state``) and so does
@@ -799,7 +800,17 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     loop; a ``MeshComm`` runs this rank's vehicles, the state [B,
     n_local, ...], with the dense level loop. Per-vehicle records are
     then the local vehicles' and the graph's records (adjacency, directed
-    couplings, levels, priorities) every vehicle's."""
+    couplings, levels, priorities) every vehicle's.
+
+    ``debug_capture`` (the single program, one prioritization a step, a
+    batch of one) makes the step return ``(state, info, capture)``, where
+    ``capture`` holds each vehicle's exact planning inputs, the keys of
+    pdmpc_tpu's capture: ``obs_polys`` [N, n_obs, Hp, VO, 2] (the
+    obstacles as the vehicle's chunk planned against them), ``obs_mask``
+    [N, n_obs], ``ref_points``, ``v_ref``, ``pose0``, ``trim0`` and on a
+    road ``bnd_segs`` [N, S, 2, 2] and ``bnd_mask`` — so an independent
+    oracle can plan each vehicle again (``utils.astar_oracle``). Off, the
+    step runs as before, launch for launch."""
     n = scenario.n_vehicles
     hp = mpa.Hp
     dt = cfg.dt_seconds
@@ -808,6 +819,9 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
     max_num_cls = min(cfg.max_num_CLs, n)
     # planning chunk width; results are identical at any value
     c_chunk = min(n, cfg.level_chunk or 2)
+    if debug_capture and (comm is not None or cfg.priority in VOTING):
+        raise ValueError("debug_capture records the single program's "
+                         "planning with one prioritization a step")
     comm = LocalComm(n) if comm is None else comm
     nl = comm.n_local
     # the global index of each local vehicle, under a MeshComm only: the
@@ -847,6 +861,10 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
 
     def step(state: StepState, k: int):
         bsz = state.pose.shape[0]
+        if debug_capture and bsz != 1:
+            raise ValueError(f"debug_capture records a batch of one "
+                             f"scenario, not {bsz}")
+        capture = {} if debug_capture else None
         if bsz not in tiles:
             tiles[bsz] = _tile_scenario(scenario, bsz, gidx)
         sc_rows = tiles[bsz]
@@ -1051,6 +1069,9 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                     field[bi, vi] = value
 
             if gidx is None:
+                if capture is not None:
+                    obs_seen = torch.zeros((nl, n_obs, hp, VO, 2),
+                                           device=dev)
                 # ---- merged compact chunk loop: every vehicle planned
                 # once; the schedule needs levels on the host: one sync a
                 # solve for the whole batch
@@ -1059,7 +1080,13 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
                     # a planning row is a (scenario, vehicle) pair; padded
                     # slots are not planned at all: no kernel work
                     bi, vi, ri = chunk.to(dev)           # one copy a chunk
+                    if capture is not None:
+                        # the obstacles as this chunk plans against them
+                        obs_seen[vi] = torch.cat([planned.shapes, *polys],
+                                                 dim=1)[bi]
                     plan_rows(bi, vi, ri, vi, planned.shapes)
+                if capture is not None:
+                    capture.update(obs_polys=obs_seen, obs_mask=obs_mask[0])
                 return planned, planned.shapes, sequential, levels
 
             # ---- dense level loop (pdmpc_tpu controller.py:1072-1130):
@@ -1192,6 +1219,12 @@ def make_prioritized_step(cfg: Config, mpa: MpaTensors,
             reference_points=ref_points,
             priority_permutation=perm_chosen,
         )
+        if capture is not None:
+            capture.update(ref_points=ref_points[0], v_ref=v_ref[0],
+                           pose0=state.pose[0], trim0=state.trim[0])
+            if road is not None:
+                capture.update(bnd_segs=bnd_segs, bnd_mask=bnd_mask)
+            return new_state, info, capture
         return new_state, info
 
     return step

@@ -1,23 +1,130 @@
-"""Evaluation runs: batched Monte-Carlo rollouts.
+"""Experiment sweeps — the eval/1-experiment capability — and batched
+Monte-Carlo rollouts.
 
-Torch twin of pdmpc_tpu/eval/experiments.py's ``monte_carlo_sweep``: one
-batch of rollouts of the same scenario, each rollout's vehicles shifted
-along their reference paths by a uniform arc, all planned in one merged
-chunk loop a step. The parameter sweeps of that module come with the
-result store (``ExperimentResult.save`` and ``load``).
+Torch twin of pdmpc_tpu/eval/experiments.py. Reference:
+eval/1-experiment/eval_experiments.m: sweep seeds x n_vehicles x
+(priority strategies | max_num_CLs), skip infeasible optimal-priority
+sizes, reuse cached results (FileNameConstructor.load_latest
+memoization; ``utils.filenames.load_latest`` serves only this package's
+results). ``monte_carlo_sweep`` plans one batch of rollouts of the same
+scenario, each rollout's vehicles shifted along their reference paths by
+a uniform arc, in one merged chunk loop a step.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterable
+
 import torch
 
 from pdmpc_torch import prng
-from pdmpc_torch.config import Config
+from pdmpc_torch.config import Config, PriorityStrategies, ScenarioType
 from pdmpc_torch.controller import StepState
-from pdmpc_torch.experiment import ExperimentResult, run_batch_from
+from pdmpc_torch.eval.processing import summarize
+from pdmpc_torch.experiment import (
+    ExperimentResult,
+    run_batch_from,
+    run_experiment,
+)
 from pdmpc_torch.ops import geometry as geo
 from pdmpc_torch.parallel.sharded import batched_initial_state
 from pdmpc_torch.scenarios.scenario import ScenarioTensors
+from pdmpc_torch.utils.filenames import load_latest, results_directory
+
+# Reference sweep defaults (eval_experiments.m:29-34)
+DEFAULT_COMMONROAD_SIZES = tuple(range(5, 21))
+DEFAULT_CIRCLE_SIZES = tuple(range(2, 11))
+DEFAULT_SEEDS = (1, 2, 3)
+# optimal priority is skipped beyond this size in sweeps
+# (eval_experiments.m:60-66)
+OPTIMAL_PRIORITY_MAX_VEHICLES = 8
+
+
+def eval_experiments(
+    base: Config | None = None,
+    n_vehicles_list: Iterable[int] | None = None,
+    priorities: Iterable[PriorityStrategies] = (
+        PriorityStrategies.constant_priority,
+        PriorityStrategies.random_priority,
+        PriorityStrategies.FCA_priority,
+        PriorityStrategies.coloring_priority,
+    ),
+    seeds: Iterable[int] = DEFAULT_SEEDS,
+    max_num_cls_list: Iterable[int] | None = None,
+    use_cache: bool = True,
+    save: bool = True,
+    root: str | None = None,
+    device=None,
+) -> dict:
+    """Sweep experiments on ``device`` (default CUDA; raises without it),
+    each cell one ``run_experiment``; returns {(n, strategy, max_num_CLs,
+    seed): summary dict}. Cached results and saves live under ``root``
+    (default ``utils.filenames.RESULTS_ROOT``)."""
+    base = base or Config(scenario_type=ScenarioType.circle, T_end=8.0)
+    if n_vehicles_list is None:
+        n_vehicles_list = (
+            DEFAULT_CIRCLE_SIZES
+            if base.scenario_type == ScenarioType.circle
+            else DEFAULT_COMMONROAD_SIZES
+        )
+
+    cells: list[Config] = []
+    for n in n_vehicles_list:
+        if max_num_cls_list is not None:
+            # bounding study (eval_bounding.m:12): cost vs max_num_CLs
+            for cls_bound in max_num_cls_list:
+                for seed in seeds:
+                    cells.append(dataclasses.replace(
+                        base, amount=n, max_num_CLs=cls_bound, seed=seed,
+                        path_ids=()))
+        else:
+            for strategy in priorities:
+                if (strategy == PriorityStrategies.optimal_priority
+                        and n > OPTIMAL_PRIORITY_MAX_VEHICLES):
+                    continue  # eval_experiments.m:60-66
+                for seed in seeds:
+                    cells.append(dataclasses.replace(
+                        base, amount=n, priority=strategy, seed=seed,
+                        path_ids=()))
+
+    results: dict = {}
+    for cfg in cells:
+        cfg = cfg.validate()
+        result = load_latest(cfg, root) if use_cache else None
+        if result is None:
+            result = run_experiment(cfg, device)
+            if save:
+                result.save(results_directory(cfg, root))
+        key = (cfg.amount, cfg.priority.value, cfg.max_num_CLs, cfg.seed)
+        results[key] = summarize(result)
+    return results
+
+
+def eval_bounding(base: Config | None = None,
+                  bounds: Iterable[int] = (1, 2, 4, 6, 99),
+                  **kw) -> dict:
+    """Computation-level bounding study: solution cost vs max_num_CLs.
+
+    Reference: eval/eval_phd/eval_bounding.m:12 (ECC 2024).
+    """
+    return eval_experiments(base=base, max_num_cls_list=bounds, **kw)
+
+
+def eval_prioritization(base: Config | None = None, **kw) -> dict:
+    """Prioritization-strategy study. Reference:
+    eval_phd/eval_prioritization.m."""
+    return eval_experiments(
+        base=base,
+        priorities=(
+            PriorityStrategies.constant_priority,
+            PriorityStrategies.random_priority,
+            PriorityStrategies.FCA_priority,
+            PriorityStrategies.coloring_priority,
+            PriorityStrategies.explorative_priority,
+        ),
+        **kw,
+    )
 
 
 def start_shifts(seed: int, n_scenarios: int, n_vehicles: int,

@@ -39,6 +39,10 @@ from pdmpc_torch.scenarios.mixed import create_mixed_scenario
 from pdmpc_torch.scenarios.scenario import Scenario
 
 
+# ``package`` of a saved result's metadata (``ExperimentResult.save``)
+PACKAGE = "pdmpc_torch"
+
+
 def create_scenario(options: Config, mpa: Mpa) -> Scenario:
     """Scenario factory (scenarios/Scenario.m:75-88): circle, mixed and
     commonroad, with the human-driven vehicles of
@@ -88,17 +92,27 @@ class ExperimentResult:
 
     def save(self, directory: str, partial: bool = False) -> str:
         """Write ``<directory>/<yymmdd-HHMMSS>.npz`` (``info_<field>``
-        arrays) and ``.json`` (``config``, ``timings``, ``git_hash``; and
-        ``partial``, for a truncated save that ``utils.filenames.
-        load_latest`` never serves), as pdmpc_tpu's ``save``. Returns the
-        path without suffix."""
+        arrays) and ``.json`` (``config``, ``timings``, ``git_hash``;
+        ``package``, which marks the result as this package's, so that
+        ``utils.filenames.load_latest`` serves no result of pdmpc_tpu;
+        and ``partial``, for a truncated save that ``load_latest`` never
+        serves), as pdmpc_tpu's ``save``. A second save within the same
+        second takes the name ``<yymmdd-HHMMSS>_001`` (then ``_002``, ...),
+        which sorts after the first, so no result overwrites another (the
+        sweeps save a run a second and more into one directory). Returns
+        the path without suffix."""
         os.makedirs(directory, exist_ok=True)
-        base = os.path.join(directory, time.strftime("%y%m%d-%H%M%S"))
+        stamp = os.path.join(directory, time.strftime("%y%m%d-%H%M%S"))
+        base, i = stamp, 0
+        while os.path.exists(base + ".json") or os.path.exists(base + ".npz"):
+            i += 1
+            base = f"{stamp}_{i:03d}"
         np.savez_compressed(base + ".npz", **{
             f"info_{k}": np.asarray(v)
             for k, v in self.infos._asdict().items()})
         meta = {"config": self.options.to_json_dict(),
-                "timings": self.timings, "git_hash": self.git_hash}
+                "timings": self.timings, "git_hash": self.git_hash,
+                "package": PACKAGE}
         if partial:
             meta["partial"] = True
         with open(base + ".json", "w") as f:

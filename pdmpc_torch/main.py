@@ -7,8 +7,7 @@ main_distributed.m and repeat.m:
     python -m pdmpc_torch.main --scenario circle --amount 4 --t-end 2.0
     python -m pdmpc_torch.main --computation-mode parallel_threads \\
         --device cpu --ranks 2 --no-save
-
-``--gui`` (ui/config_gui.m) is not ported yet and raises.
+    python -m pdmpc_torch.main --gui   # the config wizard (config_gui.py)
 """
 
 from __future__ import annotations
@@ -198,17 +197,21 @@ def cli(argv: list[str] | None = None) -> int:
     p.add_argument("--repeat", action="store_true",
                    help="re-run the last experiment (repeat.m)")
     p.add_argument("--gui", action="store_true",
-                   help="interactive config wizard (not ported yet)")
+                   help="interactive config wizard (ui/config_gui.m)")
     p.add_argument("--no-save", action="store_true")
     args = p.parse_args(argv)
 
-    if args.gui:
-        raise NotImplementedError("pdmpc_torch has no --gui yet "
-                                  "(ui/config_gui.m)")
     if args.repeat:
         result = repeat(args.device)
     else:
-        cfg = Config.load_from_file(args.config) if args.config else Config()
+        if args.gui:
+            from pdmpc_torch.config_gui import config_gui
+
+            cfg = config_gui()
+        elif args.config:
+            cfg = Config.load_from_file(args.config)
+        else:
+            cfg = Config()
         overrides = {
             "scenario_type": ("scenario", ScenarioType),
             "amount": ("amount", int),

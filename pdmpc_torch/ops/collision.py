@@ -614,10 +614,17 @@ def _lattice_args(lat: Lattice, n: int, va: int):
             *c.stride()[:2])
 
 
-def _launched(err, kernel, form=None):
-    """Count a launch of ``kernel`` (its wrapper's ``launches``: every
-    form) and, for a lattice-form call, of ``form`` too; raise on a failed
-    launch."""
+def _launch(kernel, form, entry, *args):
+    """Launch ``entry(*args)`` (a csrc entry point) and count it on
+    ``kernel`` (its wrapper's ``launches``: every form) and, for a
+    lattice-form call, on ``form`` too; raise on a failed launch. While
+    torch.profiler traces (``utils.timing.profile_trace``), the launch
+    runs in a range named after ``kernel``."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(kernel.__name__):
+            err = entry(*args)
+    else:
+        err = entry(*args)
     if err != 0:
         raise RuntimeError(f"{kernel.__name__} kernel launch failed: CUDA "
                            f"error {err}")
@@ -709,10 +716,10 @@ def outline_hits(cx: torch.Tensor, cy: torch.Tensor, pre: OutlinePre,
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().outline_hits(
-        cx.data_ptr(), cy.data_ptr(), *ptrs,
-        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        no, vo, cap, _stream(dev)), outline_hits)
+    _launch(outline_hits, None, build_kernels().outline_hits,
+            cx.data_ptr(), cy.data_ptr(), *ptrs,
+            None if live is None else live.data_ptr(), out.data_ptr(), v,
+            va, c, no, vo, cap, _stream(dev))
     return out
 
 
@@ -734,10 +741,10 @@ def outline_hits_lattice(lat: Lattice, live: torch.Tensor,
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().outline_hits_lattice(
-        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, no, vo, cap, _stream(dev)), outline_hits,
-        outline_hits_lattice)
+    _launch(outline_hits, outline_hits_lattice,
+            build_kernels().outline_hits_lattice,
+            *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+            v, b, no, vo, cap, _stream(dev))
     return out
 
 
@@ -757,10 +764,10 @@ def boundary_hits(cx: torch.Tensor, cy: torch.Tensor, pre: SegmentsPre,
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().boundary_hits(
-        cx.data_ptr(), cy.data_ptr(), *ptrs,
-        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        s_pad, cap, _stream(dev)), boundary_hits)
+    _launch(boundary_hits, None, build_kernels().boundary_hits,
+            cx.data_ptr(), cy.data_ptr(), *ptrs,
+            None if live is None else live.data_ptr(), out.data_ptr(), v,
+            va, c, s_pad, cap, _stream(dev))
     return out
 
 
@@ -782,10 +789,10 @@ def boundary_hits_lattice(lat: Lattice, live: torch.Tensor,
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().boundary_hits_lattice(
-        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, s_pad, cap, _stream(dev)), boundary_hits,
-        boundary_hits_lattice)
+    _launch(boundary_hits, boundary_hits_lattice,
+            build_kernels().boundary_hits_lattice,
+            *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+            v, b, s_pad, cap, _stream(dev))
     return out
 
 
@@ -806,10 +813,10 @@ def sat_hits(cx: torch.Tensor, cy: torch.Tensor, pre: ObstaclesPre,
     out = torch.empty((v, c), dtype=torch.bool, device=cx.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().sat_hits(
-        cx.data_ptr(), cy.data_ptr(), *ptrs,
-        None if live is None else live.data_ptr(), out.data_ptr(), v, va, c,
-        no, vo, cap, _stream(dev)), sat_hits)
+    _launch(sat_hits, None, build_kernels().sat_hits,
+            cx.data_ptr(), cy.data_ptr(), *ptrs,
+            None if live is None else live.data_ptr(), out.data_ptr(), v,
+            va, c, no, vo, cap, _stream(dev))
     return out
 
 
@@ -831,9 +838,10 @@ def sat_hits_lattice(lat: Lattice, live: torch.Tensor,
     out = torch.empty((v, b, n), dtype=torch.bool, device=live.device)
     if out.numel() == 0:
         return out
-    _launched(build_kernels().sat_hits_lattice(
-        *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
-        v, b, no, vo, cap, _stream(dev)), sat_hits, sat_hits_lattice)
+    _launch(sat_hits, sat_hits_lattice,
+            build_kernels().sat_hits_lattice,
+            *_lattice_args(lat, n, va), *ptrs, live.data_ptr(), out.data_ptr(),
+            v, b, no, vo, cap, _stream(dev))
     return out
 
 

@@ -6,8 +6,10 @@ utility/FileNameConstructor.m: results under
 ``load_latest(options)``, which finds the newest result whose saved
 options equal the requested ones (Config.isequal), the whole-experiment
 memoization of the eval sweeps (eval_experiments.m:72-76). Either
-package's results serve (``ExperimentResult.save`` writes the same
-files).
+package loads the other's results (``ExperimentResult.save`` writes the
+same files), but ``load_latest`` serves only this package's: a result of
+pdmpc_tpu's, which may hold the TPU's timings, is never served as the
+port's.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ def results_directory(options: Config, root: str | None = None) -> str:
 
 
 def load_latest(options: Config, root: str | None = None):
-    """The newest saved ExperimentResult with equal options, or None
-    (FileNameConstructor.load_latest, :146-177). A result saved as
-    partial (a truncated run) is never served."""
-    from pdmpc_torch.experiment import ExperimentResult
+    """The newest saved ExperimentResult of this package with equal
+    options, or None (FileNameConstructor.load_latest, :146-177). A
+    result saved as partial (a truncated run), or saved by pdmpc_tpu (no
+    ``package`` mark of this package's), is never served."""
+    from pdmpc_torch.experiment import PACKAGE, ExperimentResult
 
     directory = results_directory(options, root)
     for meta_path in sorted(glob.glob(os.path.join(directory, "*.json")),
@@ -45,7 +48,8 @@ def load_latest(options: Config, root: str | None = None):
             saved = Config.from_json_dict(meta["config"])
         except (json.JSONDecodeError, KeyError, ValueError):
             continue
-        if not meta.get("partial") and saved.isequal(options):
+        if (meta.get("package") == PACKAGE and not meta.get("partial")
+                and saved.isequal(options)):
             return ExperimentResult.load(meta_path[: -len(".json")])
     return None
 

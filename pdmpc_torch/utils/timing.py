@@ -13,12 +13,16 @@ reference's main path (HighLevelController.m:169,315,380-391):
   optimize, publish_predictions, receive_fallback
 
 In the port, ``main``'s vehicle-sharded run times its once-only spans
-(hlc_init_all, control_loop) here; the per-step spans have no caller yet.
+(hlc_init_all, control_loop) here, and the host-driven loop
+(``hlc.run_with_plant``) its per-step measure, plan and apply spans. The
+step's own phases are one program of device work: ``profile_trace``
+traces them with torch.profiler.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -72,3 +76,24 @@ class ControllerTiming:
                 arr[1, step] = duration
             out[name] = arr
         return out
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """In-step profiling with torch.profiler (pdmpc_tpu's ``profile_trace``
+    on the JAX profiler): ``with profile_trace(dir) as prof: run(...)``
+    traces the host's ops and, where CUDA is available, the device's
+    kernels, and writes a Chrome trace to ``<log_dir>/trace.json`` (open
+    it in Perfetto or chrome://tracing); ``prof.key_averages()`` sums the
+    ops by name. While it traces, each launch of a collision kernel runs
+    in a range named after its wrapper (``outline_hits``,
+    ``boundary_hits``, ``sat_hits``)."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,9 +1,11 @@
 """The port stands alone: no module of pdmpc_torch (the batch modules
-``parallel.sharded`` and ``eval.experiments``, the entry ``main`` and the
-distributed modules among them), nor chip_smoke.py, compare_trees.py or
-the rank workers of the distributed tests (tests/test_torch_comm.py),
-loads jax or anything of pdmpc_tpu; and its entry points, the batched
-ones too, refuse to fall back to the CPU silently."""
+``parallel.sharded`` and ``eval.experiments``, the entry ``main``, the
+distributed modules, the host loop and plants, the evaluation and
+plotting pipeline, the config wizard and the A* oracle among them), nor
+chip_smoke.py, compare_trees.py or the rank workers of the distributed
+tests (tests/test_torch_comm.py), loads jax or anything of pdmpc_tpu; and
+its entry points, the batched ones, the host loop and the evaluation
+too, refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -28,7 +30,12 @@ import tests.test_torch_comm
 assert {"pdmpc_torch.parallel.sharded", "pdmpc_torch.eval.experiments",
         "pdmpc_torch.profile_step", "pdmpc_torch.main",
         "pdmpc_torch.parallel.multihost", "pdmpc_torch.parallel.scaling",
-        "pdmpc_torch.utils.filenames", "pdmpc_torch.utils.timing"
+        "pdmpc_torch.utils.filenames", "pdmpc_torch.utils.timing",
+        "pdmpc_torch.hlc", "pdmpc_torch.plant", "pdmpc_torch.plant_bridge",
+        "pdmpc_torch.config_gui", "pdmpc_torch.visualization",
+        "pdmpc_torch.eval.processing", "pdmpc_torch.eval.plotting",
+        "pdmpc_torch.eval.phd", "pdmpc_torch.eval.run_phd",
+        "pdmpc_torch.utils.astar_oracle", "pdmpc_torch.native"
         } <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "pdmpc_tpu")))
@@ -41,7 +48,7 @@ def test_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 23
+    assert int(n_modules) >= 34
     assert bad.strip() == "[]", bad
 
 
@@ -57,11 +64,18 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
 @pytest.mark.parametrize("entry", ["run_experiment_batch",
                                    "monte_carlo_sweep", "spawn",
                                    "measure_data_parallel",
-                                   "measure_vehicle_axis", "scaling_cli"])
+                                   "measure_vehicle_axis", "scaling_cli",
+                                   "run_with_plant", "eval_experiments",
+                                   "run_phd"])
 def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
     from pdmpc_torch import Config
-    from pdmpc_torch.eval.experiments import monte_carlo_sweep
+    from pdmpc_torch.eval import run_phd
+    from pdmpc_torch.eval.experiments import (
+        eval_experiments,
+        monte_carlo_sweep,
+    )
     from pdmpc_torch.experiment import run_experiment_batch
+    from pdmpc_torch.hlc import run_with_plant
     from pdmpc_torch.parallel import multihost, scaling
 
     cfg = Config(amount=3, T_end=0.2, beam_width=8)
@@ -75,7 +89,12 @@ def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
                                             n_ranks=2),
            "measure_vehicle_axis": partial(scaling.measure_vehicle_axis,
                                            n_ranks=2),
-           "scaling_cli": partial(scaling.main, ["--ranks", "2"])}[entry]
+           "scaling_cli": partial(scaling.main, ["--ranks", "2"]),
+           "run_with_plant": partial(run_with_plant, cfg),
+           "eval_experiments": partial(eval_experiments, cfg,
+                                       n_vehicles_list=(3,), seeds=(1,),
+                                       use_cache=False, save=False),
+           "run_phd": partial(run_phd.main, ["--skip-values"])}[entry]
     # no rank process may start before the device is refused
     monkeypatch.setattr(multihost.multiprocessing, "get_context", None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -142,3 +161,25 @@ def test_unported_config_raises(what, monkeypatch):
     if what == "hdv":
         assert scenario.is_hdv.tolist() == [True, False, False]
     assert callable(make_prioritized_step(cfg, mpa_t, scenario))
+
+
+_NO_MATPLOTLIB = """
+import sys
+sys.modules["matplotlib"] = None
+import chip_smoke
+import pdmpc_torch.eval.experiments, pdmpc_torch.eval.phd
+import pdmpc_torch.eval.processing, pdmpc_torch.eval.run_phd
+import pdmpc_torch.hlc, pdmpc_torch.main, pdmpc_torch.plant_bridge
+import pdmpc_torch.native, pdmpc_torch.utils.astar_oracle
+print("ok")
+"""
+
+
+def test_card_path_needs_no_matplotlib():
+    """The card's hosts have no matplotlib: chip_smoke.py, the host loop
+    and the evaluation's runs import none (only ``eval.plotting``,
+    ``visualization`` and ``run_phd --figures`` draw)."""
+    out = subprocess.run([sys.executable, "-c", _NO_MATPLOTLIB], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -2,7 +2,8 @@
 CPU (pdmpc_torch/main.py, experiment.ExperimentResult.save and load,
 utils/filenames.py, parallel/scaling.py).
 
-- The CLI runs ``sequential`` and ``parallel_threads`` (2 gloo ranks, the
+- The CLI runs ``sequential``, ``--gui`` (a scripted config wizard) and
+  ``parallel_threads`` (2 gloo ranks, the
   (1, 2) mesh) and prints the JAX CLI's ``steps=... vehicles=...
   fallbacks=... control_loop=...`` line; the parallel run equals the
   sequential one bit for bit, and over one rank a parallel mode runs the
@@ -11,16 +12,23 @@ utils/filenames.py, parallel/scaling.py).
 - ``load_latest`` serves the newest complete result with equal options
   (never a partial one); ``repeat`` re-runs Config.json.
 - The scaling smoke test of tests/test_scaling.py over 2 gloo ranks.
-- ``ControllerTiming``'s once-only and per-step spans.
+- ``ControllerTiming``'s once-only and per-step spans, and
+  ``profile_trace``'s trace with the kernels' named ranges.
 """
 
+import json
 import re
 
 import numpy as np
 import pytest
 import torch
 
-from pdmpc_torch import ComputationMode, Config, ScenarioType
+from pdmpc_torch import (
+    ComputationMode,
+    Config,
+    PriorityStrategies,
+    ScenarioType,
+)
 from pdmpc_torch import main as tmain
 from pdmpc_torch.experiment import ExperimentResult, run_experiment
 from pdmpc_torch.parallel.scaling import (
@@ -89,9 +97,27 @@ def test_parallel_mode_over_one_rank_runs_single_program(mode, sequential):
     assert_same_infos(res.infos, sequential.infos)
 
 
-def test_gui_is_not_ported():
-    with pytest.raises(NotImplementedError, match="gui"):
-        tmain.cli(ARGS + ["--gui"])
+def test_gui_is_not_ported(capsys, monkeypatch, tmp_path):
+    """``--gui`` runs the config wizard (``config_gui.py``): it prompts on
+    an interactive terminal, here scripted, and the CLI runs the
+    configuration it builds."""
+    from pdmpc_torch import config_gui
+
+    prev = tmp_path / "prev.json"
+    monkeypatch.setattr(config_gui, "_PREVIOUS_PATH", str(prev))
+    answers = iter(
+        # 10 enum menus: circle, coloring priorities (the 4th), defaults
+        ["2", "", "", "", "4", "", "", "", "", ""]
+        # is_prioritized; amount, T_end, Hp, max_num_CLs, beam_width, seed
+        + [""] + ["4", "1.0", "", "", "32", ""])
+    monkeypatch.setattr("builtins.input", lambda _: next(answers))
+    monkeypatch.setattr("sys.stdin.isatty", lambda: True, raising=False)
+    assert tmain.cli(["--gui", "--device", "cpu", "--no-save"]) == 0
+    assert re.search(LINE, capsys.readouterr().out, re.M)
+    with open(prev) as f:
+        built = Config.from_json_dict(json.load(f))
+    assert built.isequal(small(
+        priority=list(PriorityStrategies)[3]).validate())
 
 
 def test_save_load_round_trip(tmp_path, sequential):
@@ -177,3 +203,29 @@ def test_controller_timing_spans():
     assert np.isnan(plan[:, 1]).all()
     assert (plan[1, [0, 2]] >= 0).all() and plan[0, 2] >= plan[0, 0]
     assert spans["controller_start_time"] == timing.controller_start_time
+
+
+def test_profile_trace_names_the_kernel_launches(tmp_path, monkeypatch):
+    """``profile_trace`` writes a Chrome trace; while it runs, a collision
+    kernel's launch sits in a range named after its wrapper, and outside
+    it no range opens (the launch is counted either way)."""
+    from pdmpc_torch.ops import collision
+    from pdmpc_torch.utils.timing import profile_trace
+
+    monkeypatch.setattr(collision.outline_hits, "launches", 0)
+    ranges = []
+
+    def entry(*args):
+        ranges.append(torch.autograd._profiler_enabled())
+        return 0
+
+    collision._launch(collision.outline_hits, None, entry)
+    with profile_trace(str(tmp_path)) as prof:
+        collision._launch(collision.outline_hits, None, entry, 1, 2)
+    with open(tmp_path / "trace.json") as f:
+        assert '"outline_hits"' in f.read()
+    assert {e.key: e.count for e in prof.key_averages()}["outline_hits"] == 1
+    assert ranges == [False, True]
+    assert collision.outline_hits.launches == 2
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        collision._launch(collision.outline_hits, None, lambda: 7)

@@ -1,12 +1,14 @@
 """The port's beam search against the reference's on the reference's own
 planning inputs.
 
-Two runs are replayed step by step through pdmpc_tpu's
+Three runs are replayed step by step through pdmpc_tpu's
 ``make_prioritized_step(..., debug_capture=True)``, which records every
 vehicle's exact planning inputs (pose, trim, reference samples, the
 obstacle snapshot it planned against and its mask, boundary segments where
-there is a road): the cr3 golden scenario (road, outline crossing) and the
-circle Hp-10 golden scenario (free space, SAT). For every step, the port's
+there is a road): the cr3 golden scenario (road, outline crossing), the
+circle Hp-10 golden scenario (free space, SAT) and the first two steps of
+the cr20 golden scenario (road, 20 vehicles and their 60 obstacle slots;
+its first step, some 25 s on one CPU thread). For every step, the port's
 ``plan_trajectory`` plans all vehicles in one batched call, on tables
 carried over with ``convert.mpa_from_numpy``, and is compared with
 pdmpc_tpu's ``plan_trajectory(use_pallas=False)`` (the XLA path the CPU
@@ -20,6 +22,8 @@ torch's in some 5% of inputs (``python -m tests.test_torch_numerics``),
 so a yaw's cosine can be an ulp apart. In these replays that leaves a few
 pose and swept-shape entries one or two ulps apart, and no decision.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -46,12 +50,24 @@ CONFIGS = {
     "cr3": Config(amount=3, T_end=4.0, beam_width=64),
     "circle_hp10": Config(scenario_type=ScenarioType.circle, amount=3,
                           T_end=2.0, Hp=10, beam_width=128),
+    "cr20": Config(amount=20, T_end=4.0, beam_width=64),
 }
+# steps replayed where not the whole run: the port plans cr20's 20
+# vehicles in some 16 s on one CPU thread
+STEPS = {"cr20": 1}
+# cost tolerance where the replay is not bit-equal in it: in cr20's first
+# step a child pose one ulp apart (XLA's vectorized cos or sin) moves one
+# vehicle's cost by 2.8e-8 (15 ulps of 0.0228), with the same trims
+COST_TOL = {"cr20": dict(rtol=2e-6, atol=1e-7)}
+# the per-layer call structure is held on the small scenarios
+LAYER_CONFIGS = ("circle_hp10", "cr3")
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def replay(request):
-    cfg = CONFIGS[request.param].validate()
+@functools.cache
+def _replay(name):
+    """(name, configuration, reference MPA tensors, captures a step) of a
+    replay through pdmpc_tpu's debug-capture step."""
+    cfg = CONFIGS[name].validate()
     mpa = build_mpa(cfg)
     mpa_t = mpa.to_tensors_for(cfg)
     sc_t = create_scenario(cfg, mpa).to_tensors()
@@ -59,10 +75,15 @@ def replay(request):
                                          debug_capture=True))
     state = initial_state(sc_t, cfg.Hp)
     caps = []
-    for k in range(cfg.k_end):
+    for k in range(STEPS.get(name, cfg.k_end)):
         state, _, cap = step(state, jnp.asarray(k, dtype=jnp.int32))
         caps.append({kk: np.asarray(v) for kk, v in cap.items()})
-    return cfg, mpa_t, caps
+    return name, cfg, mpa_t, caps
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def replay(request):
+    return _replay(request.param)
 
 
 def _reference_planner(cfg, mpa_j, cap):
@@ -100,8 +121,16 @@ def _port_plan(cfg, mpa, cap):
         non_convex=cfg.use_non_convex_obstacles)
 
 
+def assert_costs(got, want, name, msg):
+    """Costs bit-equal, or within ``COST_TOL`` where a replay is not."""
+    if name in COST_TOL:
+        np.testing.assert_allclose(got, want, err_msg=msg, **COST_TOL[name])
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=msg)
+
+
 def test_plans_match_reference(replay):
-    cfg, mpa_j, caps = replay
+    name, cfg, mpa_j, caps = replay
     mpa = convert.mpa_from_numpy(
         {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
     ref_plan = _reference_planner(cfg, mpa_j, caps[0])
@@ -110,10 +139,12 @@ def test_plans_match_reference(replay):
         want = ref_plan(cap)
         got = _port_plan(cfg, mpa, cap)
         msg = f"step {k}"
-        for field in ("trims", "is_exhausted", "n_expanded", "cost"):
+        for field in ("trims", "is_exhausted", "n_expanded"):
             np.testing.assert_array_equal(
                 getattr(got, field).numpy(), np.asarray(getattr(want, field)),
                 err_msg=f"{msg}: {field}")
+        assert_costs(got.cost.numpy(), np.asarray(want.cost), name,
+                     f"{msg}: cost")
         for field in ("poses", "shapes"):
             np.testing.assert_allclose(
                 getattr(got, field).numpy(), np.asarray(getattr(want, field)),
@@ -121,7 +152,7 @@ def test_plans_match_reference(replay):
         n_checked += len(cap["trim0"])
         n_hit_obstacles += int(cap["obs_mask"].any(axis=1).sum())
         n_pruned += int((np.asarray(want.n_expanded) > cfg.beam_width).sum())
-    assert n_checked == 3 * cfg.k_end
+    assert n_checked == cfg.amount * len(caps)
     # the replay exercises the obstacle path and the pruning top-k
     assert n_hit_obstacles > 0
     assert n_pruned > 0
@@ -141,7 +172,8 @@ def test_cost_to_go_matches_reference():
                                    atol=1e-7)
 
 
-def test_collision_checks_per_layer(replay, monkeypatch):
+@pytest.mark.parametrize("name", LAYER_CONFIGS)
+def test_collision_checks_per_layer(name, monkeypatch):
     """Each search layer masks its candidates with one call of each check
     that applies, in its lattice form: on the road the outline and
     boundary kernels', the outline result passed on as the boundary
@@ -150,7 +182,7 @@ def test_collision_checks_per_layer(replay, monkeypatch):
     ``candidate_polys`` comes from inside a collision wrapper (their plain
     versions on the CPU). The plan so made is the reference's XLA-path
     plan."""
-    cfg, mpa_j, caps = replay
+    _, cfg, mpa_j, caps = _replay(name)
     mpa = convert.mpa_from_numpy(
         {k: np.asarray(v) for k, v in mpa_j._asdict().items()}, device="cpu")
     hp = cfg.Hp
