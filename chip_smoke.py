@@ -150,7 +150,25 @@ Phases, any failure exits non-zero:
    lack: tests/test_torch_viz.py draws every one on the CPU); (f)
    ``profile_trace`` around a road and a circle step names the three
    kernels; (g) cr3 (the golden configuration) with ``debug_capture``:
-   every plan oracle-optimal under the numpy and the native A*.
+   every plan oracle-optimal under the numpy and the native A*;
+20. the geometry API, the graft entry and the tools (counters zeroed
+   before each run and read after it): (a) ``ops.geometry``'s SAT, InterX,
+   sorted-vertex area, bounding boxes, masked area and ``k_dirs`` corridor
+   bound on the card against the same inputs on the CPU (masks and boxes
+   equal, areas within rtol 1e-6 and atol 1e-7, corridor bounds within
+   4e-5 m, and the card's cos and sin of the fit's directions read
+   against the CPU's); (b) ``graft_entry.entry()`` (the 8-vehicle circle at beam 256,
+   4 scenarios), each scenario equal to ``run_experiment``'s first step,
+   the SAT kernel launching, then ``dryrun_multichip(2, backend="gloo")``,
+   two ranks on the card; (c) ``tools.axis_sweep``'s 13 cases, each ok,
+   centralized circle-3 launching no kernel, the circle cases SAT only,
+   the road and mixed cases outline and boundary only, no unmapped vote
+   shape; (d) ``tools.nonconvex_delta`` at cr20 (beam 64, 10 steps): both
+   geometries collision-free, the convex run launching SAT and boundary,
+   the non-convex run outline and boundary; (e) ``tools.speed_of_light``
+   at the cr20 production shapes with one profiled road step's device ms
+   (beam 256): every kernel equal to its plain version, every share of
+   the bound at or below 1.05.
 
 The last line of standard output is the device JSON; before it come the
 card's name and power limit (as nvidia-smi prints them) and the kernels'
@@ -164,17 +182,23 @@ phase 10's chunk; for SAT ``path_circle40``, phase 13's chunk),
 circle), ``path_centralized`` (boundary: phase 17e's first step), ``oversize``
 (phase 13, per size and budget), ``launches_per_step`` and
 ``launches_by_path`` (launches, launches a step and lattice-form launches
-of every driven run of phases 3, 5 and 9 to 19; a sharded run's summed
-over its ranks); for SAT also ``path_sharded`` (phase 18c's level) and
+of every driven run of phases 3, 5 and 9 to 20; a sharded run's summed
+over its ranks), ``speed_of_light`` (phase 20e: the kernel at the cr20
+production shapes, its ms, bound and share); for SAT also
+``path_sharded`` (phase 18c's level) and
 ``lattice``
 (phase 2's lattice form) and ``rollout_noise`` (phase 14: launches, host
 and device ms of one step's threefry noise at cr20's sampled shape).
+
+Whether the phases pass or fail, the script stops every process it
+started before it exits (``stop_children``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -183,6 +207,16 @@ from functools import partial
 from types import SimpleNamespace
 
 import numpy as np
+
+from pdmpc_torch.tools.speed_of_light import (
+    crossing_bound,
+    crossing_path_bound,
+    device_ms,
+    distinct_vertices,
+    sat_bound,
+    sat_bundle_bytes,
+    sat_path_bound,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(HERE, "tests", "expected_results")
@@ -194,24 +228,13 @@ V, VA, C, N_OBS, VO, N_SEG = 2, 6, 512 * 12, 60, 16, 176
 # circle-path shapes of the SAT kernel: 5-vertex convex areas, 3 obstacle
 # families x 10 vehicles (padded to 32), 12 trims
 VA_SAT, N_OBS_SAT, N_TRIMS_SAT = 5, 30, 12
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
-# f32 operations per (candidate edge, segment) pair of the crossing test:
-# qp (2), d, A, B (3 each), |d|, t_lim (2), m_lim, A*d, B*d, |A|, |B| and
-# five comparisons
-OPS_PER_PAIR = 25
-# f32 operations of the SAT test: a projection is a multiply, a fused
-# multiply-add and a min and a max; an axis test adds two differences and
-# two comparisons; a candidate's axes cost two differences, a multiply, a
-# fused multiply-add, a square root, a max and two divisions each
-OPS_PER_PROJECTION, OPS_PER_AXIS_TEST, OPS_PER_AXIS = 4, 4, 8
 # share of live candidates in phase 2's masked run: the road MPA allows
 # 37.5% of the 12 x 12 transitions in layers 1 to 5
 LIVE_SHARE = 0.375
-# sleep-kernel cycles a second (H100 SXM boost clock, 1.98 GHz): enough
-# to cover the host's enqueue time in ``device_ms``
-SLEEP_CYCLES_PER_S = 2.0e9
+# phase 20a's limit (m) on the card's corridor bounds against the CPU's:
+# cos and sin off by up to 2 ulps move phase 20a's bounds, at coordinates
+# up to 25 m, by less (tests/test_torch_geometry_api.py)
+CORRIDOR_ATOL = 4e-5
 
 
 def card_line() -> str:
@@ -372,96 +395,6 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, reps=30, warmup=3):
-    """Device time of one call of ``fn`` in ms: ``reps`` calls queued
-    behind a sleep kernel long enough to hide the host's time to enqueue
-    them, so the events see the device's work back to back."""
-    host = 0.0
-    for _ in range(warmup):
-        t0 = time.perf_counter()
-        fn()
-        host = max(host, time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2.0 * reps * host + 2e-3) * SLEEP_CYCLES_PER_S))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def roofline(ops, n_bytes):
-    """(bound ms, bound_by): the larger of ``ops`` f32 operations over the
-    card's peak rate and ``n_bytes`` over its memory rate."""
-    ops_ms = ops / PEAK_F32_OPS * 1e3
-    bytes_ms = n_bytes / PEAK_BYTES * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
-
-
-def crossing_bound(live, feasible, n_active, va, in_bytes):
-    """(bound ms, bound_by) of a crossing mask: every (edge, active
-    segment) pair of a live candidate without a hit, one pair of a live
-    candidate with one; ``live``/``feasible`` [V, ...] bool, ``n_active``
-    [V]; bytes: ``in_bytes`` read, one byte a candidate written."""
-    v = live.shape[0]
-    n_live = live.reshape(v, -1).sum(dim=1)
-    free = feasible.reshape(v, -1).sum(dim=1)
-    ops = float(((free * va * n_active + (n_live - free)).sum())
-                * OPS_PER_PAIR)
-    return roofline(ops, in_bytes + live.numel())
-
-
-def distinct_vertices(x, y):
-    """Vertices of polygons ``x, y`` [..., K] (vertex last) that differ
-    from their predecessor, the first always: what is left of a polygon
-    padded by repeated vertices, as the SAT kernel stages it. A polygon of
-    k distinct vertices has k non-zero axes."""
-    new = (x[..., 1:] != x[..., :-1]) | (y[..., 1:] != y[..., :-1])
-    return 1 + new.sum(dim=-1)
-
-
-def sat_bundle_bytes(pre):
-    """Bytes of a SAT bundle the function must read: the mask and the six
-    fields of every active obstacle."""
-    n_active = int((pre.mask > 0).sum())
-    return (pre.mask.numel() * pre.mask.element_size()
-            + n_active * 6 * pre.ox.shape[-1] * pre.ox.element_size())
-
-
-def sat_bound(live, feasible, cand_verts, pre, in_bytes):
-    """(bound ms, bound_by) of a SAT mask, over distinct vertices and
-    non-zero axes only: every live candidate's own axes and extents; then
-    one obstacle axis (the cheapest test) for every active obstacle of a
-    live candidate without a hit, and every axis of the cheapest active
-    obstacle for a live candidate with one; ``live``/``feasible`` [V, ...]
-    bool, ``cand_verts`` [V, ...] the candidates' distinct vertices,
-    ``pre`` the obstacle bundle; bytes: ``in_bytes`` read, one byte a
-    candidate written."""
-    v = live.shape[0]
-    live, free = live.reshape(v, -1), feasible.reshape(v, -1)
-    k = cand_verts.reshape(v, -1).double()                   # [V, C]
-    active = pre.mask > 0                                    # [V, NO]
-    o_verts = distinct_vertices(pre.ox, pre.oy).double()
-    o_axes = ((pre.oax != 0) | (pre.oay != 0)).sum(dim=-1).double()
-    own = k * (OPS_PER_AXIS + k * OPS_PER_PROJECTION)
-    separated = (active.sum(dim=1, keepdim=True)
-                 * (k * OPS_PER_PROJECTION + OPS_PER_AXIS_TEST))
-    # one overlapping pair: the obstacle's axes on the candidate's
-    # vertices, the candidate's axes on the obstacle's vertices
-    pair = (o_axes[:, None] * (k[..., None] * OPS_PER_PROJECTION
-                               + OPS_PER_AXIS_TEST)
-            + k[..., None] * (o_verts[:, None] * OPS_PER_PROJECTION
-                              + OPS_PER_AXIS_TEST))          # [V, C, NO]
-    overlap = pair.masked_fill(~active[:, None], float("inf")).amin(dim=-1)
-    per_cand = own + separated.where(free, overlap)
-    ops = float(per_cand.where(live, 0.0).sum())
-    return roofline(ops, in_bytes + live.numel())
-
-
 def compare(torch, name, got, want):
     """Exact equality of two masks; returns the max abs error (0)."""
     torch.cuda.synchronize()
@@ -490,8 +423,8 @@ def kernel_row(torch, name, fn, plain, cx, cy, pre, bound, src_line):
         "source": "pdmpc_torch/csrc/collision.cu",
         "replaces": src_line,
         "launches": None, "max_abs_err": max_abs_err,
-        "ms": device_ms(torch, lambda: fn(cx, cy, pre)),
-        "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre), reps=10),
+        "ms": device_ms(lambda: fn(cx, cy, pre)),
+        "plain_ms": device_ms(lambda: plain(cx, cy, pre), reps=10),
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "event_ms": time_ms(torch, lambda: fn(cx, cy, pre)),
     }
@@ -514,8 +447,8 @@ def live_run(torch, label, fn, plain, live, bound):
     got = {
         "live_share": n_live / live.numel(),
         "feasible_share": n_free / live.numel(),
-        "ms": device_ms(torch, lambda: fn(live)),
-        "plain_ms": device_ms(torch, lambda: plain(live), reps=10),
+        "ms": device_ms(lambda: fn(live)),
+        "plain_ms": device_ms(lambda: plain(live), reps=10),
         "bound_ms": bound(live, want, live.numel())[0],
     }
     print(f"kernel {label}: live share {got['live_share']:.4f}, feasible "
@@ -657,7 +590,7 @@ def oversize_bundles(torch, coll, dev):
                                      f"test input")
             rec = {"size": size, "entries": entries,
                    "hit_share": hit_share, "by_budget": {},
-                   "plain_ms": device_ms(torch, lambda: plain(cx, cy, pre),
+                   "plain_ms": device_ms(lambda: plain(cx, cy, pre),
                                          reps=3, warmup=1)}
             rec["bound_ms"], rec["bound_by"] = bound(
                 torch.ones_like(want), ~want)
@@ -671,7 +604,7 @@ def oversize_bundles(torch, coll, dev):
                     compare(torch, label, fn(cx, cy, pre), want)
                     rec["by_budget"][budget] = {
                         **plan._asdict(),
-                        "ms": device_ms(torch, lambda: fn(cx, cy, pre))}
+                        "ms": device_ms(lambda: fn(cx, cy, pre))}
                     print(f"kernel {label}: "
                           f"{rec['by_budget'][budget]['ms']:.5f} ms",
                           flush=True)
@@ -972,33 +905,6 @@ def plans_with_plain_versions(torch, coll, run_experiment, cfg, label,
     return form_calls
 
 
-def lattice_bytes(lat, live, bundle_bytes):
-    """Bytes a lattice-form call reads: table, trims, poses, c and s, the
-    live mask and ``bundle_bytes`` of the bundle."""
-    v, b = lat.trim.shape
-    return (lat.table.numel() * 4 + v * b * (8 + 3 * 4 + 2 * 4)
-            + live.numel() + bundle_bytes)
-
-
-def crossing_path_bound(lat, live, feasible, pre, n_active):
-    """The bound of a crossing kernel's lattice-form call, ``n_active``
-    [V] its active segments a vehicle."""
-    return crossing_bound(
-        live, feasible, n_active, lat.table.shape[2],
-        lattice_bytes(lat, live, sum(t.numel() * t.element_size()
-                                     for t in pre)))
-
-
-def sat_path_bound(lat, live, feasible, pre, n_active=None):
-    """The bound of a SAT lattice-form call (the active obstacles come
-    from ``pre``); the candidates' distinct vertices are their table
-    areas'."""
-    table = lat.table
-    cand_verts = distinct_vertices(table[..., 0], table[..., 1])[lat.trim]
-    return sat_bound(live, feasible, cand_verts, pre,
-                     lattice_bytes(lat, live, sat_bundle_bytes(pre)))
-
-
 # per kernel: its active segments or obstacles a vehicle, from its bundle,
 # and the bound of a lattice-form call
 PATH_BOUNDS = {
@@ -1053,8 +959,8 @@ def path_shapes(torch, coll, form_calls, rows, names, label,
                 "layer": layer, "candidates": live.numel(),
                 "live": int(live.sum()), "feasible": int(want.sum()),
                 "active": n_active.tolist(),
-                "ms": device_ms(torch, lambda: fn(*args)),
-                "plain_ms": device_ms(torch, lambda: plain(*args), reps=10),
+                "ms": device_ms(lambda: fn(*args)),
+                "plain_ms": device_ms(lambda: plain(*args), reps=10),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
         path = {"plan": label, "layers": layers}
@@ -1145,7 +1051,7 @@ def noise_cost(torch):
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     got = {"launches": launches, "host_ms": host_ms,
-           "device_ms": device_ms(torch, draw, reps=10)}
+           "device_ms": device_ms(draw, reps=10)}
     print(f"threefry noise of a cr20 sampled step: {got}", flush=True)
     return got
 
@@ -2205,6 +2111,210 @@ def host_loop_and_evaluation(torch, coll, Config, card, dims, record,
           flush=True)
 
 
+def geometry_inputs():
+    """Phase 20a's inputs (numpy, from the seed): random convex polygons,
+    boxes with integer corners (exact touches), paths and their masks,
+    padded polygons and their vertex masks, a corridor of two rings, and
+    blobs of 16 vertices against it (the last 8 some 20 m away)."""
+    rng = np.random.default_rng(SEED + 20)
+    a, b = rand_polys(rng, 256, 6, 1.0), rand_polys(rng, 192, 5, 1.0)
+    # integer boxes: exact touches along edges and at corners
+    lo = rng.integers(0, 6, (128, 1, 2))
+    size = rng.integers(1, 3, (128, 1, 2))
+    unit = np.array([[0, 0], [1, 0], [1, 1], [0, 1]])
+    boxes = lo + unit * size
+    paths_a = rng.uniform(0, 4, (512, 7, 2))
+    paths_b = rng.uniform(0, 4, (512, 5, 2))
+    paths_b[::4, 1] = paths_a[::4, 2]
+    mask_a, mask_b = rng.random((512, 6)) < 0.4, rng.random((512, 4)) < 0.6
+    n_valid = rng.integers(3, 7, (256, 1))
+    vertex_mask = np.arange(6) < n_valid
+    padded = np.where(vertex_mask[..., None], a,
+                      rng.uniform(-9, 9, a.shape))
+    strip = [[0, 0], [6, 0], [6, 1], [0, 1], [0, 0], [0, 0]]
+    box = [[2, 1], [3, 1], [3, 3], [2, 3], [2, 1], [2, 1]]
+    rings = np.array([strip, box], dtype=float)
+    segs = np.stack([np.stack([r[:4], r[1:5]], axis=1) for r in rings]
+                    ).reshape(-1, 2, 2)
+    blobs = rand_polys(rng, 128, 16, 0.8)
+    blobs[-8:] += 20.0                               # away from the corridor
+    return dict(a=a, b=b, boxes=boxes, paths_a=paths_a, paths_b=paths_b,
+                mask_a=mask_a, mask_b=mask_b, vertex_mask=vertex_mask,
+                padded=padded, rings=rings, segs=segs, blobs=blobs)
+
+
+def ulps(torch, got, want):
+    """|got - want| in units of the last place of ``want`` (f32)."""
+    up = torch.nextafter(want.abs(), torch.tensor(float("inf")))
+    return (got - want).abs() / (up - want.abs())
+
+
+def geometry_api(torch, card):
+    """20a: the geometry API (``ops.geometry``) on the card against the
+    same inputs on the CPU: masks and boxes equal; areas within rtol 1e-6
+    and atol 1e-7 m2 (a sum's order and the angle sort's atan2 may round a
+    last bit apart); corridor bounds within ``CORRIDOR_ATOL``. Of the
+    support fit's ops (``outer_poly_approx``) only cos and sin are not
+    correctly rounded on both devices: their readings on the fit's 24
+    directions print, and the fit of the same points on both devices."""
+    from pdmpc_torch.ops import geometry as geo
+
+    inputs = geometry_inputs()
+    segs = inputs["segs"]
+
+    def on(dev):
+        t = {k: tensor(torch, v, dev, torch.bool if v.dtype == bool else
+                       torch.float32) for k, v in inputs.items()}
+        seg_mask = torch.ones(segs.shape[0], dtype=torch.bool, device=dev)
+        return {
+            "sat_collide_pairwise": geo.sat_collide_pairwise(t["a"], t["b"]),
+            "sat_collide_pairwise (touching boxes)":
+                geo.sat_collide_pairwise(t["boxes"], t["boxes"]),
+            "segments_intersect_any": geo.segments_intersect_any(
+                t["paths_a"], t["paths_b"], t["mask_a"], t["mask_b"]),
+            "polygon_bbox": torch.stack(geo.polygon_bbox(t["a"])),
+            "bboxes_overlap": geo.bboxes_overlap(
+                tuple(x[:, None] for x in geo.polygon_bbox(t["a"])),
+                tuple(x[None] for x in geo.polygon_bbox(t["b"]))),
+            "convex_intersection_area": geo.convex_intersection_area(
+                t["a"][:192], t["b"]),
+            "polygon_area (mask)": geo.polygon_area(t["padded"],
+                                                    t["vertex_mask"]),
+            "bound_convex_to_corridor (k_dirs 24)":
+                geo.bound_convex_to_corridor(t["blobs"], t["rings"],
+                                             t["segs"], seg_mask, k_dirs=24),
+        }
+
+    cpu, cuda = on("cpu"), on("cuda")
+    theta = (2.0 * np.pi * torch.arange(24, dtype=torch.float32) / 24)
+    for fn in (torch.cos, torch.sin):
+        off = ulps(torch, fn(theta.cuda()).cpu(), fn(theta))
+        print(f"20a {fn.__name__} of the 24 directions ({card}): "
+              f"{int((off > 0).sum())} of 24 differ from the CPU's, "
+              f"at most {float(off.max()):.3g} ulp", flush=True)
+    blobs = tensor(torch, inputs["blobs"], "cpu", torch.float32)
+    full = torch.ones(blobs.shape[:-1], dtype=torch.bool)
+    fit = geo.outer_poly_approx(blobs, full, 24)
+    err = (geo.outer_poly_approx(blobs.cuda(), full.cuda(), 24).cpu()
+           - fit).abs()
+    print(f"20a outer_poly_approx of the same blobs ({card}): max abs "
+          f"difference {float(err.max()):.3e} m, at |x| "
+          f"{float(fit.flatten()[err.argmax()].abs()):.3g} m", flush=True)
+    for name, want in cpu.items():
+        got = cuda[name].cpu()
+        if want.dtype == torch.bool or name == "polygon_bbox":
+            bad = int((got != want).sum())
+            shares = (f", {float(want.float().mean()):.4f} true"
+                      if want.dtype == torch.bool else "")
+            print(f"20a {name} ({card}): {bad} mismatches of "
+                  f"{want.numel()}{shares}", flush=True)
+            if bad or (want.dtype == torch.bool
+                       and not 0 < int(want.sum()) < want.numel()):
+                raise AssertionError(f"20a {name}: {bad} mismatches")
+            continue
+        tol = ((0.0, CORRIDOR_ATOL) if name.startswith("bound_convex")
+               else (1e-6, 1e-7))
+        err = (got - want).abs()
+        print(f"20a {name} ({card}): max abs difference "
+              f"{float(err.max()):.3e}, at |x| "
+              f"{float(want.flatten()[err.argmax()].abs()):.3g} "
+              f"(rtol {tol[0]}, atol {tol[1]})", flush=True)
+        torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+
+
+def last_slice(torch, coll, Config, card, dims, by_path, rows):
+    """Phase 20: the geometry API, the graft entry and the tools."""
+    from pdmpc_torch import ScenarioType, graft_entry
+    from pdmpc_torch.experiment import run_experiment
+    from pdmpc_torch.parallel.sharded import batched_initial_state
+    from pdmpc_torch.tools import axis_sweep, nonconvex_delta, speed_of_light
+
+    t_phase = time.perf_counter()
+    # ---- 20a: the geometry API, card against CPU ------------------------
+    geometry_api(torch, card)
+    # ---- 20b: the graft entry and its dry run ---------------------------
+    zero_counts(coll)
+    fn, args = graft_entry.entry()
+    states, info = fn(*args)
+    torch.cuda.synchronize()
+    launched = counts(coll)
+    record_counts(by_path, "graft entry (B = 4)", launched, 1)
+    one = run_experiment(Config(scenario_type=ScenarioType.circle, amount=8,
+                                T_end=0.2, beam_width=256), device="cuda")
+    info = type(info)(*(x.cpu().numpy() for x in info))
+    for b in range(4):
+        bad = differing_fields(type(info)(*(x[b][None] for x in info)),
+                               one.infos)
+        if bad:
+            raise AssertionError(f"20b entry(): scenario {b} differs from "
+                                 f"run_experiment's first step in {bad}")
+    if not launched["sat_hits"] or launched["outline_hits"]:
+        raise AssertionError(f"20b entry(): launches {launched}")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2, backend="gloo")
+    print(f"20b graft_entry ({card}): entry() steps the 8-vehicle circle at "
+          f"beam 256 for 4 scenarios, each equal to run_experiment's first "
+          f"step; launches {launched}; dryrun_multichip(2, gloo, two ranks "
+          f"on the card) in {time.perf_counter() - t0:.1f} s", flush=True)
+    # ---- 20c: the axis sweep --------------------------------------------
+    road_pair = {"outline_hits", "boundary_hits"}
+    failed = []
+    cases = axis_sweep.sweep_cases()
+    for name, cfg in cases.items():
+        rec = axis_sweep.run_case(cfg, "cuda")
+        print(f"20c {json.dumps({name: rec})}", flush=True)
+        if not rec["ok"]:
+            failed.append(f"{name}: {rec['error']}")
+            continue
+        want = (set() if not cfg.is_prioritized
+                else {"sat_hits"} if cfg.scenario_type == ScenarioType.circle
+                else road_pair)
+        got = {k for k, v in rec["launches"].items() if v}
+        if got != want:
+            failed.append(f"{name}: launched {sorted(got)}, not "
+                          f"{sorted(want)}")
+        unmapped = [w for w in rec["warnings"] if "summation order" in w]
+        if unmapped:
+            failed.append(f"{name}: an unmapped vote shape: {unmapped}")
+        record_counts(by_path, f"sweep {name}",
+                      {**rec["launches"], **rec["lattice_launches"]},
+                      rec["steps"])
+    if failed:
+        raise AssertionError(f"20c axis sweep: {failed}")
+    print(f"20c axis sweep ({card}): {len(cases)} cases ok, each with the "
+          f"kernels of its path", flush=True)
+    # ---- 20d: convex against non-convex obstacles at cr20 ---------------
+    delta, results = nonconvex_delta.measure(device="cuda")
+    for geometry, res in results.items():
+        hits = vehicle_collisions(res.infos.poses[:, :, 0], *dims)
+        launches = delta[geometry]["launches"]
+        want = ({"sat_hits", "boundary_hits"} if geometry == "convex"
+                else road_pair)
+        if hits or {k for k in KERNELS if launches[k]} != want:
+            raise AssertionError(f"20d {geometry}: collisions {hits[:5]}, "
+                                 f"launches {launches}")
+        record_counts(by_path, f"nonconvex_delta {geometry}", launches,
+                      res.n_steps)
+    print(f"20d nonconvex_delta ({card}): {json.dumps(delta)}", flush=True)
+    # ---- 20e: speed of light at the cr20 production shapes --------------
+    cfg, mpa_t, sc_t = batch_tensors(Config(amount=20, T_end=4.0,
+                                            beam_width=256))
+    from pdmpc_torch.controller import make_prioritized_step
+
+    state, _ = make_prioritized_step(cfg, mpa_t, sc_t)(
+        batched_initial_state(sc_t, cfg.Hp, 1), 0)
+    step = profiled_step(cfg, state, 1)
+    sol = speed_of_light.measure(step_device_ms=step["device_ms"])
+    print(f"20e speed_of_light ({card}): {json.dumps(sol)}", flush=True)
+    if not sol["ok"]:
+        raise AssertionError("20e: a share above "
+                             f"{speed_of_light.MAX_SHARE} or a mismatch")
+    for name in KERNELS:
+        rows[name]["speed_of_light"] = sol["kernels"][name]
+    print(f"phase 20 ({card}): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 # keys of a kernel's row in the JSON line, and their types
 CONTRACT = {"name": str, "route": str, "source": str, "replaces": str,
             "launches": int, "max_abs_err": float, "ms": float,
@@ -2412,6 +2522,8 @@ def main() -> int:
     # ---- 19. the host loop, the plants and the evaluation ---------------
     host_loop_and_evaluation(torch, coll, Config, card, dims, record, road,
                              road_res, circle_res, headline, headline_res)
+    # ---- 20. the geometry API, the graft entry and the tools ------------
+    last_slice(torch, coll, Config, card, dims, by_path, rows)
 
     for name in KERNELS:
         rows[name]["launches_by_path"] = by_path[name]
@@ -2424,5 +2536,47 @@ def main() -> int:
     return 0
 
 
+def live_children() -> list[int]:
+    """Pids of this process's children that have not been reaped."""
+    me = str(os.getpid())
+    pids = []
+    for entry in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis: state, ppid
+        if stat[stat.rindex(")") + 2:].split()[1] == me:
+            pids.append(int(entry))
+    return pids
+
+
+def stop_children() -> None:
+    """Stop every process the run started that is still there: any child
+    killed, then the resource tracker that the spawned ranks' start left
+    (it ends when no process holds its pipe any more, else only a moment
+    after this process has exited); each is reaped before this returns.
+    The ranks' result queues are collected first, so that the tracker
+    ends with nothing registered to clean up."""
+    import gc
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    tracker = resource_tracker._resource_tracker
+    for pid in live_children():
+        if pid != tracker._pid:
+            try:
+                os.kill(pid, signal.SIGKILL)
+                os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                pass
+    tracker._stop()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -8,7 +8,9 @@ Runs, in the order other, this, this, other, each run a process of its
 own started in that checkout's directory:
 
 - kernels: phase 2 of this checkout's ``chip_smoke.py`` (its inputs, its
-  exactness check and its timing) on each checkout's kernels, all
+  exactness check) with this checkout's yardstick (the timer
+  ``device_ms``, the bounds and the peaks of
+  ``pdmpc_torch/tools/speed_of_light.py``) on each checkout's kernels, all
   candidates live: per kernel the device ms of a call, the ms of a call
   with its host part, and the plain version's device ms; where the
   checkout's ``ops/collision.py`` has the SAT lattice form (and with it
@@ -34,20 +36,32 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCENARIOS = ("commonroad", "circle")
 
 
-def kernels_worker() -> int:
-    """Run in a checkout's directory: time its kernels with this
-    checkout's phase 2."""
+def load_here(name, path):
+    """The module at ``path`` of this checkout, loaded as ``name``."""
     import importlib.util
 
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, *path.split("/")))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def kernels_worker() -> int:
+    """Run in a checkout's directory: time its kernels with this
+    checkout's phase 2 and yardstick."""
     sys.path[0] = os.getcwd()
     import torch
 
     from pdmpc_torch.ops import collision as coll
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_timing", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    # registered under its module name before chip_smoke imports it, so
+    # both trees are timed and bounded by this checkout's copy, whatever
+    # the other tree holds there (an older tree: nothing)
+    load_here("pdmpc_torch.tools.speed_of_light",
+              "pdmpc_torch/tools/speed_of_light.py")
+    smoke = load_here("chip_smoke_timing", "chip_smoke.py")
     rows = smoke.check_kernels(torch, coll, "cuda",
                                extras=hasattr(coll, "sat_hits_lattice"))
     print(json.dumps({row["name"]: {k: row[k] for k in

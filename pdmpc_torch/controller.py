@@ -70,7 +70,6 @@ from pdmpc_torch.ops.collision import SegmentsPre, precompute_segments
 from pdmpc_torch.ops.search import (
     Obstacles,
     PlanResult,
-    _sat_separates_batch,
     pad_polys_to_vo,
     plan_trajectory,
     plan_trajectory_sampled,
@@ -321,8 +320,8 @@ def _fca_priorities(cfg: Config, adjacency, ref_points):
     )                                                    # [..., N, Hp, 4, 2]
     # SAT in the XLA form, as the reference's Precision.HIGHEST projection
     # matmul compiles on XLA:CPU; touching counts as a collision
-    hits = ~_sat_separates_batch(shapes[..., :, None, :, :, :],
-                                 shapes[..., None, :, :, :, :])  # [..,N,N,Hp]
+    hits = geo.sat_collide(shapes[..., :, None, :, :, :],
+                           shapes[..., None, :, :, :, :])  # [..,N,N,Hp]
     counts = torch.where(adjacency, hits.sum(dim=-1), 0)
     order = torch.sort(-counts.sum(dim=-1), dim=-1, stable=True).indices
     return graph_ops.ranks_of(order)

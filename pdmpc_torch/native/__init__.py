@@ -34,21 +34,21 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def compile_native() -> str:
-    """Build the shared library if it is not built yet (the
-    compile_priority_queue.m role); returns its path. Raises
-    ``RuntimeError`` with the compiler's output when g++ fails."""
+def compile_native(force: bool = False) -> str:
+    """Build the shared library if it is not built yet, or again with
+    ``force`` (the compile_priority_queue.m role); returns its path.
+    Raises ``RuntimeError`` with the compiler's output when g++ fails."""
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(
             f.read() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(_BUILD_DIR, f"libpdmpc_astar-{digest}.so")
     with _lock:
-        if os.path.isfile(out):
+        if not force and os.path.isfile(out):
             return out
         os.makedirs(_BUILD_DIR, exist_ok=True)
         with open(out + ".lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
-            if not os.path.isfile(out):
+            if force or not os.path.isfile(out):
                 tmp = f"{out}.{os.getpid()}.tmp"
                 proc = subprocess.run(
                     ["g++", *GXX_FLAGS, "-o", tmp, _SRC],
@@ -85,6 +85,16 @@ def _load() -> ctypes.CDLL:
         ]
         _lib = lib
     return _lib
+
+
+def native_available() -> bool:
+    """Whether the native A* builds and loads here: False when g++ is
+    missing or fails (or the library does not load); never raises."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def astar_plan_native(mpa, x0, trim0, ref_points, v_ref, obs_polys,

@@ -57,7 +57,8 @@ Every product is rounded on its own (the CUDA source is built with
 ``-fmad=false``), so kernel and plain version agree bit for bit.
 
 The SAT test also follows the XLA form,
-``pdmpc_tpu.ops.search._sat_separates_batch``, not the Pallas kernel's:
+``pdmpc_tpu.ops.search._sat_separates_batch`` (``geometry.sat_separated``
+here), not the Pallas kernel's:
 
 - an edge (ex, ey) has the normal (-ey, ex), normalized by
   ``max(sqrt(fma(ay, ay, ax * ax)), 1e-9)`` (the Pallas kernel drops the
@@ -94,7 +95,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from pdmpc_torch.ops.geometry import fma
+from pdmpc_torch.ops.geometry import fma, sat_axes, sat_project
 
 # Parameter-space tolerance of the crossing predicate
 # (pdmpc_tpu/ops/search.py SEG_CROSS_TOL; also hard-coded in the kernel).
@@ -273,22 +274,6 @@ def precompute_segments(segments: torch.Tensor,
          zero, zero, zero], dim=-2,
     )
     return SegmentsPre(packed=packed, mask=mask.contiguous())
-
-
-def sat_axes(x, y, dim: int):
-    """Normalized edge normals (XLA form) of polygons whose vertex
-    coordinates ``x, y`` run along ``dim``: edge i -> i+1 (cyclic) gives
-    (-ey, ex) / max(|.|, 1e-9)."""
-    ax = -(torch.roll(y, -1, dims=dim) - y)
-    ay = torch.roll(x, -1, dims=dim) - x
-    norm = torch.clamp_min(torch.sqrt(fma(ay, ay, ax * ax)), 1e-9)
-    return ax / norm, ay / norm
-
-
-def sat_project(ax, ay, x, y):
-    """Projection of vertices (x, y) on axes (ax, ay), as XLA:CPU
-    evaluates the reference's d = 2 einsum: fma(ay, y, ax * x)."""
-    return fma(ay, y, ax * x)
 
 
 class ObstaclesPre(NamedTuple):

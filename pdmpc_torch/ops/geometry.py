@@ -1,10 +1,11 @@
-"""Batched polygon geometry on tensors (main-path subset).
+"""Batched polygon geometry on tensors.
 
 Torch twin of pdmpc_tpu/ops/geometry.py. Where the JAX functions are
 written for one object and vmapped by callers, these take leading batch
-dims directly. Conventions are the reference's: a polygon is ``[..., V, 2]``
-float32, padded by repeating its last valid vertex; repeated vertices make
-zero-length edges that every function here treats as inert.
+dims directly (one object is the case of no batch dims). Conventions are
+the reference's: a polygon is ``[..., V, 2]`` float32, padded by
+repeating its last valid vertex; repeated vertices make zero-length
+edges that every function here treats as inert.
 
 Arithmetic is written op by op in the reference's order, and every 2-wide
 contraction (the reference's ``Precision.HIGHEST`` matmuls) is spelled out
@@ -80,8 +81,16 @@ def transformed_rectangle(x, y, yaw, length: float, width: float):
     return transform_polygon(local.expand(*x.shape, 4, 2), x, y, yaw)
 
 
-def polygon_area(poly):
-    """Shoelace area of polygons [..., V, 2] (pad-by-repeat vertices add 0)."""
+def polygon_area(poly, mask=None):
+    """Shoelace area of polygons [..., V, 2] (pad-by-repeat vertices add
+    0). ``mask`` [..., V] marks the valid vertices of an arbitrary
+    padding: each invalid one is replaced by the last valid vertex."""
+    if mask is not None:
+        idx = torch.arange(poly.shape[-2], device=poly.device)
+        last = torch.argmax(torch.where(mask, idx, -1), dim=-1)
+        last_pt = torch.gather(
+            poly, -2, last[..., None, None].expand(*last.shape, 1, 2))
+        poly = torch.where(mask[..., None], poly, last_pt)
     x, y = poly[..., 0], poly[..., 1]
     xn, yn = _roll_prev(x, -1), _roll_prev(y, -1)
     return 0.5 * torch.abs(torch.sum(x * yn - xn * y, dim=-1))
@@ -113,6 +122,103 @@ def _segment_intersection(p1, p2, q1, q2):
     u = (qp[..., 0] * r[..., 1] - qp[..., 1] * r[..., 0]) / safe
     valid = ~par & (t >= 0.0) & (t <= 1.0) & (u >= 0.0) & (u <= 1.0)
     return valid, p1 + t[..., None] * r
+
+
+def sat_axes(x, y, dim: int):
+    """Normalized edge normals (XLA form) of polygons whose vertex
+    coordinates ``x, y`` run along ``dim``: edge i -> i+1 (cyclic) gives
+    (-ey, ex) / max(|.|, 1e-9)."""
+    ax = -(torch.roll(y, -1, dims=dim) - y)
+    ay = torch.roll(x, -1, dims=dim) - x
+    norm = torch.clamp_min(torch.sqrt(fma(ay, ay, ax * ax)), 1e-9)
+    return ax / norm, ay / norm
+
+
+def sat_project(ax, ay, x, y):
+    """Projection of vertices (x, y) on axes (ax, ay), as XLA:CPU
+    evaluates the reference's d = 2 contractions (its einsum and its
+    matmul alike): fma(ay, y, ax * x)."""
+    return fma(ay, y, ax * x)
+
+
+def sat_separated(a, b):
+    """[...] True where convex polygons a [..., VA, 2] and b [..., VB, 2]
+    (broadcastable batch dims) are separated by an edge normal of either
+    (intersect_sat.m): on an axis, ``min(pa) - max(pb) > 0`` or ``min(pb)
+    - max(pa) > 0``. Zero axes (repeated vertices) never separate. The
+    one SAT expression of the package's torch ops, in the XLA form that
+    the SAT kernel mirrors (``sat_axes``, ``sat_project``)."""
+
+    def separated_on(axes):
+        ax, ay = axes[0][..., :, None], axes[1][..., :, None]
+        pa = sat_project(ax, ay, a[..., None, :, 0], a[..., None, :, 1])
+        pb = sat_project(ax, ay, b[..., None, :, 0], b[..., None, :, 1])
+        d1 = pa.amin(dim=-1) - pb.amax(dim=-1)
+        d2 = pb.amin(dim=-1) - pa.amax(dim=-1)
+        return ((d1 > 0) | (d2 > 0)).any(dim=-1)
+
+    return (separated_on(sat_axes(a[..., 0], a[..., 1], -1))
+            | separated_on(sat_axes(b[..., 0], b[..., 1], -1)))
+
+
+def sat_collide(a, b):
+    """True where convex polygons a [..., VA, 2] and b [..., VB, 2]
+    overlap; touching counts (the separation test is strict).
+    Reference: intersect_sat.m."""
+    return ~sat_separated(a, b)
+
+
+def sat_collide_pairwise(a, b):
+    """[..., NA, NB] ``sat_collide`` of every polygon of a [..., NA, VA, 2]
+    with every polygon of b [..., NB, VB, 2]."""
+    return sat_collide(a[..., :, None, :, :], b[..., None, :, :, :])
+
+
+def segments_intersect_any(path_a, path_b, mask_a=None, mask_b=None):
+    """True where a segment of polyline ``path_a`` [..., NA, 2] meets one
+    of ``path_b`` [..., NB, 2]; ``mask_a`` [..., NA - 1] and ``mask_b``
+    [..., NB - 1] mark the valid segments. The InterX test
+    (hlc/optimizer/graph_search/InterX.m)."""
+    valid, _ = _segment_intersection(
+        path_a[..., :-1, None, :], path_a[..., 1:, None, :],
+        path_b[..., None, :-1, :], path_b[..., None, 1:, :])
+    if mask_b is not None:
+        valid = valid & mask_b[..., None, :]
+    hits = valid.any(dim=-1)
+    if mask_a is not None:
+        hits = hits & mask_a
+    return hits.any(dim=-1)
+
+
+def convex_intersection_area(a, b):
+    """Intersection area of convex polygons a [..., VA, 2], b [..., VB, 2]
+    by the sorted-vertex construction (polyshape ``intersect`` + ``area``,
+    ReachableSetCoupler.m:39-45): the vertices of a inside b, of b inside
+    a and every edge crossing, sorted stably by angle about their centroid
+    (invalid ones last) and measured by the shoelace formula. The
+    coupling uses ``convex_intersection_area_clip``."""
+    va, vb = a.shape[-2], b.shape[-2]
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a, b = a.expand(*lead, va, 2), b.expand(*lead, vb, 2)
+    in_b = point_in_convex(a, b[..., None, :, :])              # [..., VA]
+    in_a = point_in_convex(b, a[..., None, :, :])              # [..., VB]
+    xvalid, xpts = _segment_intersection(
+        a[..., :, None, :], _roll_prev(a, -2)[..., :, None, :],
+        b[..., None, :, :], _roll_prev(b, -2)[..., None, :, :])  # [VA, VB]
+    pts = torch.cat([a, b, xpts.reshape(*lead, va * vb, 2)], dim=-2)
+    valid = torch.cat([in_b, in_a, xvalid.reshape(*lead, va * vb)], dim=-1)
+    n_valid = valid.sum(dim=-1)
+    centroid = (torch.sum(pts * valid[..., None].to(pts.dtype), dim=-2)
+                / torch.clamp_min(n_valid, 1)[..., None])
+    ang = torch.atan2(pts[..., 1] - centroid[..., 1:2],
+                      pts[..., 0] - centroid[..., 0:1])
+    ang = torch.where(valid, ang, torch.full_like(ang, math.inf))
+    order = torch.sort(ang, dim=-1, stable=True).indices
+    ring = torch.gather(pts, -2, order[..., None].expand(*order.shape, 2))
+    keep = torch.gather(valid, -1, order)
+    ring = torch.where(keep[..., None], ring, ring[..., :1, :])
+    area = polygon_area(ring)
+    return torch.where(n_valid >= 3, area, torch.zeros_like(area))
 
 
 def _ccw(poly):
@@ -212,23 +318,26 @@ def outer_poly_approx(points, mask, k_dirs: int):
     return torch.stack([x, y], dim=-1)
 
 
-def bound_convex_to_corridor(poly, rings, segs, seg_mask):
+def bound_convex_to_corridor(poly, rings, segs, seg_mask,
+                             k_dirs: int | None = None):
     """Clip convex polygons to their corridors (union of boundary rings).
 
     Reference: bound_reachable_sets.m:1-50 plus the convhull of
     HighLevelController.m:252-257, as in pdmpc_tpu. The candidate vertices
     of ``poly ∩ corridor`` — polygon vertices inside the corridor, ring
     vertices inside the polygon, polygon-edge x boundary-segment
-    intersections — are support-fitted to a K-vertex outer approximation;
-    an empty intersection keeps the polygon.
+    intersections — are support-fitted to a ``k_dirs``-vertex outer
+    approximation (default: K, the polygon's own count); an empty
+    intersection keeps the polygon (fitted to ``k_dirs`` vertices where
+    that differs from K).
 
     poly: [B..., K, 2]; rings: [B..., M, R, 2]; segs: [B..., S, 2, 2];
     seg_mask: [B..., S]. The batch dims of ``poly`` may carry extra leading
     dims over those of the corridor (e.g. [N, Hp] polygons against [N]
     corridors, with the corridor tensors given a broadcast dim).
-    Returns [B..., K, 2].
+    Returns [B..., k_dirs or K, 2].
     """
-    k = poly.shape[-2]
+    k = poly.shape[-2] if k_dirs is None else k_dirs
     # polygon vertices inside any ring: [B..., K]
     in_corridor = torch.any(
         point_in_ring(poly[..., :, None, :], rings[..., None, :, :, :]),
@@ -256,7 +365,24 @@ def bound_convex_to_corridor(poly, rings, segs, seg_mask):
     enough = torch.sum(valid, dim=-1) >= 3
     safe_valid = valid | ~enough[..., None]
     bounded = outer_poly_approx(pts, safe_valid, k)
-    return torch.where(enough[..., None, None], bounded, poly)
+    original = poly if k == poly.shape[-2] else outer_poly_approx(
+        poly, torch.ones(poly.shape[:-1], dtype=torch.bool,
+                         device=poly.device), k)
+    return torch.where(enough[..., None, None], bounded, original)
+
+
+def polygon_bbox(poly):
+    """Axis-aligned bounding boxes of polygons [..., V, 2]: (xmin, xmax,
+    ymin, ymax), each [...]."""
+    x, y = poly[..., 0], poly[..., 1]
+    return x.amin(dim=-1), x.amax(dim=-1), y.amin(dim=-1), y.amax(dim=-1)
+
+
+def bboxes_overlap(b1, b2):
+    """Whether boxes ``(xmin, xmax, ymin, ymax)`` overlap, inclusive on
+    touch as the SAT test (ReachableSetCoupler.m:34's prefilter)."""
+    return ~((b1[0] > b2[1]) | (b1[2] > b2[3]) | (b1[1] < b2[0])
+             | (b1[3] < b2[2]))
 
 
 # ---------------------------------------------------------------------------

@@ -52,10 +52,8 @@ from pdmpc_torch.ops.collision import (
     precompute_obstacles,
     precompute_outline,
     precompute_segments,
-    sat_axes,
     sat_hits,
     sat_hits_lattice,
-    sat_project,
 )
 from pdmpc_torch.ops.geometry import fma
 from pdmpc_torch.scenarios.scenario import VO
@@ -113,26 +111,6 @@ def candidate_outline_collisions(man_polys, obs_polys, obs_mask):
     (OptimizerInterface.m:36-46), through the outline kernel's wrapper."""
     pre = precompute_outline(obs_polys[None], obs_mask[None])
     return outline_hits(*_vertex_major(man_polys), pre)[0]
-
-
-def _sat_separates_batch(man_polys, obs_polys):
-    """[...] True where convex polygons man_polys [..., VA, 2] and
-    obs_polys [..., VB, 2] (broadcastable batch dims) are separated by an
-    edge normal of either (intersect_sat.m), in the XLA form of
-    ``ops.collision`` (normalized axes, fused projections)."""
-
-    def separated_on(axes, a, b):
-        ax, ay = axes[0][..., :, None], axes[1][..., :, None]
-        pa = sat_project(ax, ay, a[..., None, :, 0], a[..., None, :, 1])
-        pb = sat_project(ax, ay, b[..., None, :, 0], b[..., None, :, 1])
-        d1 = pa.amin(dim=-1) - pb.amax(dim=-1)
-        d2 = pb.amin(dim=-1) - pa.amax(dim=-1)
-        return ((d1 > 0) | (d2 > 0)).any(dim=-1)
-
-    man_axes = sat_axes(man_polys[..., 0], man_polys[..., 1], -1)
-    obs_axes = sat_axes(obs_polys[..., 0], obs_polys[..., 1], -1)
-    return (separated_on(man_axes, man_polys, obs_polys)
-            | separated_on(obs_axes, man_polys, obs_polys))
 
 
 def candidate_collisions(man_polys, obs_polys, obs_mask):

@@ -15,7 +15,7 @@ their (cx, cy) form, one planning row a vehicle and the beam's B * T
 tuple candidates as its candidates: ``boundary_hits`` for the lanelet
 boundary (the XLA form of ``candidate_boundary_violations``) and
 ``sat_hits`` for static obstacles. The pairwise checks within a tuple
-stay torch ops in the XLA form (``_sat_separates_batch``): no kernel
+stay torch ops in the XLA form (``geometry.sat_collide``): no kernel
 computes that shape.
 
 Multiply-adds and sums follow XLA:CPU's compilation of the reference
@@ -41,10 +41,9 @@ from pdmpc_torch.ops.collision import (
     precompute_segments,
     sat_hits,
 )
-from pdmpc_torch.ops.geometry import fma
+from pdmpc_torch.ops.geometry import fma, sat_collide
 from pdmpc_torch.ops.search import (
     Obstacles,
-    _sat_separates_batch,
     stable_top_k,
 )
 
@@ -207,8 +206,7 @@ def plan_centralized(
         collide = torch.zeros_like(allowed)
         for i in range(n_veh):
             for j in range(i + 1, n_veh):
-                collide |= ~_sat_separates_batch(world[:, :, i],
-                                                 world[:, :, j])
+                collide |= sat_collide(world[:, :, i], world[:, :, j])
 
         # the scenario's checks, through the kernels: each vehicle's row
         # scans the tuples whose parent is valid and whose trims are

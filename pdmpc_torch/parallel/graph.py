@@ -1,9 +1,10 @@
 """Coupling-graph algebra: leveling, priorities, weights, cutting,
 components and fallback propagation.
 
-Torch twin of pdmpc_tpu/parallel/graph.py (all but the host-side
-``unique_priorities_np``): integer/boolean matrix algebra on [N, N]
-tensors; ``fori_loop``s become Python loops. What the step calls also
+Torch twin of pdmpc_tpu/parallel/graph.py: integer/boolean matrix algebra
+on [N, N] tensors; ``fori_loop``s become Python loops. The host-side
+enumeration of the optimal priority mode, ``unique_priorities_np``, is a
+copy of the reference's numpy code. What the step calls also
 takes leading scenario dims ([B, N, N]), planning each scenario as the
 reference's vmap does. The random strategies draw with
 ``pdmpc_torch.prng``, bit-equal to the reference's ``jax.random``; one
@@ -13,6 +14,7 @@ the step only.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pdmpc_torch import prng
@@ -257,3 +259,65 @@ def fallback_closure(fallbacks: torch.Tensor, adjacency: torch.Tensor,
     for _ in range(n):
         reach = reach | torch.any(fb_matrix & reach[..., :, None], dim=-2)
     return reach
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy) enumeration for the optimal priority mode
+# ---------------------------------------------------------------------------
+
+
+def unique_priorities_np(adjacency: np.ndarray,
+                         max_edges: int = 16) -> np.ndarray:
+    """All topologically-unique priority permutations of a coupling graph.
+
+    Enumerates the 2^n_edges orientations of the undirected coupling edges,
+    keeps the acyclic ones, and dedupes by topological order. Returns
+    [n_perms, N] priority vectors. Host-side numpy, exponential like the
+    reference (Prioritizer.unique_priorities, :97-140): for small graphs
+    only; more than ``max_edges`` edges raise ``ValueError``.
+    """
+    n = adjacency.shape[0]
+    base = np.triu(np.asarray(adjacency, dtype=bool), 1)
+    rows, cols = np.nonzero(base)
+    n_edges = rows.size
+    if n_edges > max_edges:
+        raise ValueError(
+            f"unique_priorities: {n_edges} edges exceeds cap {max_edges}"
+        )
+
+    seen: set[tuple[int, ...]] = set()
+    result = []
+    for perm_bits in range(1 << n_edges):
+        directed = base.copy()
+        for e in range(n_edges):
+            if perm_bits >> e & 1:
+                directed[rows[e], cols[e]] = False
+                directed[cols[e], rows[e]] = True
+        prio = _toposort_priorities_np(directed)
+        if prio is None:
+            continue
+        key = tuple(prio.tolist())
+        if key not in seen:
+            seen.add(key)
+            result.append(prio)
+    return np.stack(result) if result else np.zeros((0, n), dtype=np.int64)
+
+
+def _toposort_priorities_np(directed: np.ndarray) -> np.ndarray | None:
+    """Stable Kahn toposort -> priorities (1-based), or None if cyclic."""
+    n = directed.shape[0]
+    in_deg = directed.sum(axis=0)
+    removed = np.zeros(n, dtype=bool)
+    order = []
+    for _ in range(n):
+        ready = np.nonzero(~removed & (in_deg == 0))[0]
+        if ready.size == 0:
+            return None
+        v = ready[0]
+        order.append(v)
+        removed[v] = True
+        in_deg = in_deg - directed[v]
+        in_deg[removed] = 1
+    prio = np.zeros(n, dtype=np.int64)
+    prio[np.array(order)] = np.arange(1, n + 1)
+    return prio

@@ -71,7 +71,8 @@ def spawn(fn, n_ranks: int, args=(), backend: str = "gloo", device=None,
     intra-op thread, on ``device`` (default CUDA; raises without it), and
     return each rank's return value in rank order. ``fn`` and its
     arguments and results must pickle (``fn`` a function of a module). A
-    rank that raises or dies fails the call, and so does a run past
+    rank that raises or ends without a result (whatever its exit code)
+    fails the call, and so does a run past
     ``timeout`` seconds where one is given (a mismatch of collectives
     already fails after ``comm.TIMEOUT``); every rank is stopped before
     it returns."""
@@ -85,6 +86,7 @@ def spawn(fn, n_ranks: int, args=(), backend: str = "gloo", device=None,
     for p in procs:
         p.start()
     out = {}
+    ended = set()       # ranks that had ended without a result at a read
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
         while len(out) < n_ranks:
@@ -95,11 +97,17 @@ def spawn(fn, n_ranks: int, args=(), backend: str = "gloo", device=None,
             try:
                 rank, ok, value = results.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and r not in out]
+                # a rank's result may still be in the pipe when it ends: it
+                # is dead only if the next read finds nothing from it either
+                now = {r for r, p in enumerate(procs)
+                       if p.exitcode is not None and r not in out}
+                dead = sorted(ended & now)
                 if dead:
-                    raise RuntimeError(f"ranks {dead} of {fn.__name__} died "
-                                       f"without a result") from None
+                    codes = [procs[r].exitcode for r in dead]
+                    raise RuntimeError(f"ranks {dead} of {fn.__name__} ended "
+                                       f"without a result (exit codes "
+                                       f"{codes})") from None
+                ended = now
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} of {fn.__name__} "

@@ -53,3 +53,11 @@ def load_latest(options: Config, root: str | None = None):
             return ExperimentResult.load(meta_path[: -len(".json")])
     return None
 
+
+
+def mpa_library_dir() -> str:
+    """The directory of this package's built MPA library
+    (``models.mpa``), never pdmpc_tpu's."""
+    from pdmpc_torch.models.mpa import _LIBRARY_DIR
+
+    return _LIBRARY_DIR

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from pdmpc_torch.ops import collision as tc
+from pdmpc_torch.ops import geometry as tgeo
 from pdmpc_torch.ops import search as tsearch
 from pdmpc_tpu.ops import pallas_collision as pk
 from pdmpc_tpu.ops import search as jsearch
@@ -283,8 +284,8 @@ def test_sat_separates_batch_matches_reference(convex_lattice):
     b = obs[None]                                      # [1, NO, 16, 2]
     want = np.asarray(jsearch._sat_separates_batch(jnp.asarray(a),
                                                    jnp.asarray(b)))
-    got = tsearch._sat_separates_batch(torch.as_tensor(a),
-                                       torch.as_tensor(b)).numpy()
+    got = tgeo.sat_separated(torch.as_tensor(a),
+                             torch.as_tensor(b)).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < want.sum() < want.size
 

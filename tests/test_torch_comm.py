@@ -7,15 +7,19 @@ field) and runs every method (``comm_checks``) over 2 and 4 ranks.
 ``gather_veh`` and the one fused collective of ``gather_tree`` must both
 give ``LocalComm``'s identity on the whole bundle, bit for bit and in the
 fields' own dtypes; ``local_slice`` and ``global_indices`` the rank's
-block; ``psum`` the total.
+block; ``psum`` the total. ``spawn`` fails at once on a rank that ends
+with exit code 0 and no result, instead of waiting to its limit.
 
-``comm_checks`` and ``sharded_runs`` (tests/test_torch_sharded.py) run in
+``comm_checks``, ``end_without_result`` and ``sharded_runs``
+(tests/test_torch_sharded.py) run in
 the ranks ``pdmpc_torch.parallel.multihost.spawn`` starts, which import
 this module by name: like the port, it imports torch, numpy and
 pdmpc_torch only, never jax.
 """
 
 import functools
+import os
+import time
 
 import numpy as np
 import pytest
@@ -156,3 +160,22 @@ def test_psum_equals_total(n_ranks):
     total = int(whole()[2].sum())
     for r in ranks(n_ranks):
         assert r["psum"] == r["local_psum"] == total
+
+
+def end_without_result(device: torch.device, silent_rank: int) -> int:
+    """Rank ``silent_rank`` ends with exit code 0 and posts nothing, as a
+    rank whose re-imported main module exits; the others return their
+    rank."""
+    rank = dist.get_rank()
+    if rank == silent_rank:
+        os._exit(0)
+    return rank
+
+
+def test_spawn_fails_on_a_rank_ending_without_a_result():
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"ranks \[1\] of "
+                       r"end_without_result ended without a result "
+                       r"\(exit codes \[0\]\)"):
+        spawn(end_without_result, 2, (1,), device="cpu", timeout=120)
+    assert time.monotonic() - t0 < 60

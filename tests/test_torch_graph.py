@@ -171,3 +171,60 @@ def test_unique_padded():
                                            fill_value=0)) for r in ids])
     got = tctl._unique_padded(torch.as_tensor(ids), 8)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def priority_graphs():
+    """name -> symmetric adjacency: tests/test_priority_modes.py's graph
+    of two components (a triangle with cyclic orientations, a path) and
+    an isolated vehicle, its sparse random graphs, and seeded random
+    graphs of 2 to 8 vehicles."""
+    graphs = {}
+    adj = np.zeros((8, 8), dtype=bool)
+    for i, j in [(0, 1), (1, 2), (0, 2), (3, 4), (4, 5), (5, 6)]:
+        adj[i, j] = adj[j, i] = True
+    graphs["two_components"] = adj
+    rng = np.random.default_rng(0)
+    for trial in range(8):
+        n = int(rng.integers(2, 8))
+        adj = np.zeros((n, n), dtype=bool)
+        for _ in range(n):
+            i, j = rng.integers(0, n, size=2)
+            if i != j:
+                adj[i, j] = adj[j, i] = True
+        graphs[f"sparse{trial}"] = adj
+    rng = np.random.default_rng(21)
+    for trial in range(6):
+        n = int(rng.integers(2, 9))
+        upper = np.triu(rng.random((n, n)) < 0.35, 1)
+        graphs[f"random{trial}"] = upper | upper.T
+    graphs["no_edges"] = np.zeros((5, 5), dtype=bool)
+    return graphs
+
+
+@pytest.mark.parametrize("name", sorted(priority_graphs()))
+def test_unique_priorities_np(name):
+    adj = priority_graphs()[name]
+    want = jg.unique_priorities_np(adj)
+    got = tg.unique_priorities_np(adj)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)             # rows in order
+    assert len(got) >= 1
+    # every row is a permutation of 1..N
+    np.testing.assert_array_equal(np.sort(got, axis=1),
+                                  np.arange(1, adj.shape[0] + 1)[None]
+                                  .repeat(len(got), 0))
+
+
+def test_unique_priorities_np_edge_cap():
+    adj = np.ones((7, 7), dtype=bool) & ~np.eye(7, dtype=bool)  # 21 edges
+    for module in (jg, tg):
+        with pytest.raises(ValueError, match="21 edges exceeds cap 16"):
+            module.unique_priorities_np(adj)
+        with pytest.raises(ValueError, match="exceeds cap 20"):
+            module.unique_priorities_np(adj, max_edges=20)
+    small = adj[:4, :4]                                   # 6 edges
+    np.testing.assert_array_equal(
+        tg.unique_priorities_np(small, max_edges=6),
+        jg.unique_priorities_np(small, max_edges=6))
+    with pytest.raises(ValueError):
+        tg.unique_priorities_np(small, max_edges=5)

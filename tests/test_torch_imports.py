@@ -1,11 +1,12 @@
 """The port stands alone: no module of pdmpc_torch (the batch modules
 ``parallel.sharded`` and ``eval.experiments``, the entry ``main``, the
 distributed modules, the host loop and plants, the evaluation and
-plotting pipeline, the config wizard and the A* oracle among them), nor
-chip_smoke.py, compare_trees.py or the rank workers of the distributed
-tests (tests/test_torch_comm.py), loads jax or anything of pdmpc_tpu; and
-its entry points, the batched ones, the host loop and the evaluation
-too, refuse to fall back to the CPU silently."""
+plotting pipeline, the config wizard, the A* oracle, the graft entry
+and the tools among them), nor chip_smoke.py, compare_trees.py or the
+rank workers of the distributed tests (tests/test_torch_comm.py), loads
+jax or anything of pdmpc_tpu; and
+its entry points, the batched ones, the host loop, the evaluation, the
+graft entry and the tools too, refuse to fall back to the CPU silently."""
 
 import os
 import subprocess
@@ -35,7 +36,9 @@ assert {"pdmpc_torch.parallel.sharded", "pdmpc_torch.eval.experiments",
         "pdmpc_torch.config_gui", "pdmpc_torch.visualization",
         "pdmpc_torch.eval.processing", "pdmpc_torch.eval.plotting",
         "pdmpc_torch.eval.phd", "pdmpc_torch.eval.run_phd",
-        "pdmpc_torch.utils.astar_oracle", "pdmpc_torch.native"
+        "pdmpc_torch.utils.astar_oracle", "pdmpc_torch.native",
+        "pdmpc_torch.graft_entry", "pdmpc_torch.tools.speed_of_light",
+        "pdmpc_torch.tools.axis_sweep", "pdmpc_torch.tools.nonconvex_delta"
         } <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "pdmpc_tpu")))
@@ -48,7 +51,7 @@ def test_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 39
     assert bad.strip() == "[]", bad
 
 
@@ -66,9 +69,11 @@ def test_run_experiment_requires_cuda_by_default(monkeypatch):
                                    "measure_data_parallel",
                                    "measure_vehicle_axis", "scaling_cli",
                                    "run_with_plant", "eval_experiments",
-                                   "run_phd"])
+                                   "run_phd", "graft_entry",
+                                   "dryrun_multichip", "speed_of_light",
+                                   "axis_sweep", "nonconvex_delta"])
 def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
-    from pdmpc_torch import Config
+    from pdmpc_torch import Config, graft_entry
     from pdmpc_torch.eval import run_phd
     from pdmpc_torch.eval.experiments import (
         eval_experiments,
@@ -77,6 +82,7 @@ def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
     from pdmpc_torch.experiment import run_experiment_batch
     from pdmpc_torch.hlc import run_with_plant
     from pdmpc_torch.parallel import multihost, scaling
+    from pdmpc_torch.tools import axis_sweep, nonconvex_delta, speed_of_light
 
     cfg = Config(amount=3, T_end=0.2, beam_width=8)
     run = {"run_experiment_batch": partial(run_experiment_batch, cfg,
@@ -94,7 +100,12 @@ def test_batch_entries_require_cuda_by_default(monkeypatch, entry):
            "eval_experiments": partial(eval_experiments, cfg,
                                        n_vehicles_list=(3,), seeds=(1,),
                                        use_cache=False, save=False),
-           "run_phd": partial(run_phd.main, ["--skip-values"])}[entry]
+           "run_phd": partial(run_phd.main, ["--skip-values"]),
+           "graft_entry": graft_entry.entry,
+           "dryrun_multichip": partial(graft_entry.dryrun_multichip, 2),
+           "speed_of_light": partial(speed_of_light.main, []),
+           "axis_sweep": partial(axis_sweep.main, []),
+           "nonconvex_delta": partial(nonconvex_delta.main, [])}[entry]
     # no rank process may start before the device is refused
     monkeypatch.setattr(multihost.multiprocessing, "get_context", None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

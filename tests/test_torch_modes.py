@@ -168,11 +168,11 @@ def test_matches_reference_step_by_step(name):
                                    err_msg=f"step {k}: cost")
     if obstacles:
         # the planned areas keep clear of every static obstacle
-        from pdmpc_torch.ops.search import _sat_separates_batch
+        from pdmpc_torch.ops.geometry import sat_separated
 
         shapes = torch.as_tensor(np.stack([g.shapes for g in got]))
         for obs in obstacles:
-            apart = _sat_separates_batch(shapes, torch.as_tensor(obs))
+            apart = sat_separated(shapes, torch.as_tensor(obs))
             assert apart.all(), name
         # and the first square is in vehicle 0's way: its plans bend
         y0 = np.stack([g.poses[0, :, 1] for g in got])

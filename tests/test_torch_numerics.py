@@ -181,6 +181,24 @@ def expressions(n, seed=0):
         "fma(ax, x, ay*y)": fma_exact(*np.broadcast_arrays(ax, px, ayy)),
         "rounded": rounded(axx.astype(np.float64) + ayy),
     })
+    # sat_collide's projections (geometry._sat_half): one polygon pair's
+    # [VA, 2] axes on [VB, 2] vertices by a Precision.HIGHEST matmul,
+    # jitted alone and not vmapped, as a caller of sat_collide runs it
+    pair_axes = rng.normal(size=(m, 5, 2)).astype(F32)
+    pair_verts = rng.uniform(0, 4, (m, 16, 2)).astype(F32)
+    one = jax.jit(lambda a, v: jnp.matmul(
+        a, v.T, precision=jax.lax.Precision.HIGHEST))
+    jo = np.stack([np.asarray(one(a, v))
+                   for a, v in zip(pair_axes, pair_verts)])
+    ax, ay = pair_axes[..., :, None, 0], pair_axes[..., :, None, 1]
+    px, py = pair_verts[..., None, :, 0], pair_verts[..., None, :, 1]
+    axx = rounded(ax.astype(np.float64) * px)
+    ayy = rounded(ay.astype(np.float64) * py)
+    out["sat_collide projection matmul"] = (jo, {
+        "port: fma(ay, y, ax*x)": port_fma(*np.broadcast_arrays(ay, py, axx)),
+        "fma(ax, x, ay*y)": fma_exact(*np.broadcast_arrays(ax, px, ayy)),
+        "rounded": rounded(axx.astype(np.float64) + ayy),
+    })
     out.update(centralized_expressions(rng, m))
     out.update(hdv_expressions(rng, m))
     out.update(occupied_expressions(rng, m))
@@ -433,6 +451,7 @@ def forms():
                                   "cost g + sum((p - ref)**2)",
                                   "SAT projection einsum",
                                   "FCA SAT projection matmul",
+                                  "sat_collide projection matmul",
                                   "rollout logits -sum((fan - ref)**2) / T",
                                   "rollout cost g + fan_d2[child]",
                                   *CENTRALIZED_AND_HDV, *OCCUPIED])

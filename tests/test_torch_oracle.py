@@ -104,6 +104,45 @@ def test_native_builds_into_the_ports_build_directory():
     assert compile_native() == path
 
 
+def test_compile_native_force_rebuilds(tmp_path, monkeypatch):
+    """``force`` builds the library again even where it exists (a new
+    file at the same content-hashed path); ``native_available`` loads
+    it."""
+    from pdmpc_torch import native
+    from pdmpc_tpu.native import native_available as jax_native_available
+
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    path = native.compile_native()
+    assert os.path.dirname(path) == str(tmp_path)
+    first = os.stat(path)
+    assert native.compile_native() == path
+    assert os.stat(path).st_ino == first.st_ino          # not rebuilt
+    assert native.compile_native(force=True) == path
+    assert os.stat(path).st_ino != first.st_ino          # rebuilt
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.native_available() and jax_native_available()
+
+
+@pytest.mark.parametrize("fault", ["compile_error", "no_compiler"])
+def test_native_available_false_when_gxx_fails(tmp_path, monkeypatch,
+                                                 fault):
+    from pdmpc_torch import native
+
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "_lib", None)
+    if fault == "compile_error":
+        broken = tmp_path / "astar.cpp"
+        broken.write_text("this is not C++\n")
+        monkeypatch.setattr(native, "_SRC", str(broken))
+    else:
+        monkeypatch.setenv("PATH", str(tmp_path))        # no g++ on it
+    assert native.native_available() is False
+    assert native._lib is None
+    with pytest.raises(RuntimeError if fault == "compile_error"
+                       else FileNotFoundError):
+        native.compile_native()
+
+
 @functools.cache
 def port_replay():
     """The port's cr3 golden run, step by step with debug_capture: (mpa,

@@ -313,7 +313,7 @@ class TestOptimalEquivalence:
         assert_votes_equal(got, want)
 
         best = np.inf
-        for prio in jg.unique_priorities_np(adj_np):
+        for prio in tg.unique_priorities_np(adj_np):
             d = adj_np & (prio[:, None] < prio[None, :])
             best = min(best, (d * w).sum())
         np.testing.assert_allclose(float(got[0].cost.sum()), best, rtol=1e-6)
